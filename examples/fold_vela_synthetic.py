@@ -16,11 +16,11 @@ import numpy as np
 def main():
     import jax
 
-    from dspsr_tpu.utils.platform import configure_from_env
-    configure_from_env()
+    from dspsr_jax.utils.platform import enable_compilation_cache
+    enable_compilation_cache()
     from test_pipeline import synth_pulsar_dada, PERIOD, DM, PULSE_PHASE
-    from dspsr_tpu.models.load_to_fold import FoldConfig, load_to_fold
-    from dspsr_tpu.io.archive import save_archive
+    from dspsr_jax.models.load_to_fold import FoldConfig, load_to_fold
+    from dspsr_jax.io.archive import save_archive
 
     path = "/tmp/example_pulsar.dada"
     print("synthesizing a DM=150 pulsar into", path)

@@ -22,11 +22,11 @@ import numpy as np
 
 
 def main():
-    from dspsr_tpu.utils.platform import configure_from_env
-    configure_from_env()
+    from dspsr_jax.utils.platform import enable_compilation_cache
+    enable_compilation_cache()
     from test_pipeline import synth_pulsar_dada, PERIOD, DM
-    from dspsr_tpu.io.sources import open_source
-    from dspsr_tpu.models.load_to_fold import FoldConfig, FoldPipeline
+    from dspsr_jax.io.sources import open_source
+    from dspsr_jax.models.load_to_fold import FoldConfig, FoldPipeline
 
     path = "/tmp/example_single_pulse.dada"
     print(f"synthesizing a {PERIOD*1e3:.1f} ms pulsar (DM={DM}) ->", path)

@@ -5,15 +5,14 @@ Mirrors the reference's SKA1 pipeline sizing example
 critically-sampled subbands, dspsr builds a convolving filterbank to 1296
 output channels; the reference job used 2 GPUs).  Here the same geometry
 maps onto a ``(time, chan)`` device mesh: the chan axis divides the 81
-INPUT channels (81 = 3^4), so each shard runs the fused megakernel on its
-own channel group's bytes — the channel-sharded fused mode
-(``parallel/pipeline.py``), i.e. the MPITrans channel scatter ON the fast
-path.
+INPUT channels (81 = 3^4), so each shard owns a group of output channels
+between the forward FFT and the per-subband inversion — the MPITrans
+channel scatter (``parallel/pipeline.py``).
 
 By default this runs a SCALED-DOWN geometry on a virtual 6-device CPU
 mesh (2 time x 3 chan, 9 input channels x 4 subbands) and verifies the
-sharded result against the single-chip run; pass ``--full`` on real
-multi-chip TPU hardware for the full 81-channel configuration.
+sharded result against the single-device run; pass ``--full`` on a
+multi-GPU machine for the full 81-channel configuration.
 
 Run: python examples/ska1_band2.py
 """
@@ -40,12 +39,12 @@ def main():
 
     import numpy as np
 
-    from dspsr_tpu.io.sources import RawFileSource
-    from dspsr_tpu.models.load_to_fold import FoldConfig, FoldPipeline
-    from dspsr_tpu.observation import Observation, Signal
-    from dspsr_tpu.parallel.pipeline import ShardedFoldPipeline
-    from dspsr_tpu.parallel.sharded import make_mesh
-    from dspsr_tpu.timing.mjd import MJD
+    from dspsr_jax.io.sources import RawFileSource
+    from dspsr_jax.models.load_to_fold import FoldConfig, FoldPipeline
+    from dspsr_jax.observation import Observation, Signal
+    from dspsr_jax.parallel.pipeline import ShardedFoldPipeline
+    from dspsr_jax.parallel.sharded import make_mesh
+    from dspsr_jax.timing.mjd import MJD
 
     if FULL:
         nchan_in, nsub, n_time, n_chan = 81, 16, len(jax.devices()) // 3, 3
@@ -86,8 +85,7 @@ def main():
     sh = ShardedFoldPipeline(RawFileSource(path, obs), cfg, mesh)
     print(f"mesh (time={n_time}, chan={n_chan}); "
           f"{nchan_in} input channels x {nsub} subbands -> "
-          f"{nchan_in * nsub} output channels; "
-          f"channel-sharded fused mode: {sh.mega_chan}")
+          f"{nchan_in * nsub} output channels")
     res = sh.run()
     print("sharded profiles:", res.profiles.shape,
           "hits:", float(np.asarray(res.hits).sum()))

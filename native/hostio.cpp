@@ -1,6 +1,6 @@
-// hostio: native host-side streaming I/O runtime for dspsr_tpu.
+// hostio: native host-side streaming I/O runtime for dspsr_jax.
 //
-// TPU-native equivalent of the reference's host runtime pieces:
+// Equivalent of the reference's host runtime pieces:
 //  - PrefetchReader: background-thread block reader with a ring of buffers
 //    (the performance role of dsp::Seekable's overlap recycling + the
 //    IOManager block loop, Kernel/Classes/Seekable.C:70-222) so the Python
@@ -148,7 +148,7 @@ void prefetch_close(PrefetchReader* r) {
 // Layout in shared memory:
 //   [ RingHeader | header_area (hdr_bytes) | data (nbufs * buf_bytes) ]
 struct RingHeader {
-  uint64_t magic;         // 'TPURING1'
+  uint64_t magic;         // 'DSPRING1'
   int64_t hdr_bytes;      // ASCII observation header area size
   int64_t buf_bytes;      // bytes per data buffer
   int64_t nbufs;
@@ -158,7 +158,7 @@ struct RingHeader {
   std::atomic<int32_t> hdr_set;   // header written
 };
 
-static const uint64_t RING_MAGIC = 0x31474e4952555054ULL;  // "TPURING1"
+static const uint64_t RING_MAGIC = 0x31474e4952505344ULL;  // "DSPRING1"
 
 struct Ring {
   int fd = -1;

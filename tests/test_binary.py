@@ -7,11 +7,11 @@ import math
 import numpy as np
 import pytest
 
-from dspsr_tpu.timing import binary
-from dspsr_tpu.timing.binary import BTModel, ELL1Model
-from dspsr_tpu.timing.mjd import MJD
-from dspsr_tpu.timing.par import Ephemeris
-from dspsr_tpu.timing.polyco import SpinPredictor
+from dspsr_jax.timing import binary
+from dspsr_jax.timing.binary import BTModel, ELL1Model
+from dspsr_jax.timing.mjd import MJD
+from dspsr_jax.timing.par import Ephemeris
+from dspsr_jax.timing.polyco import SpinPredictor
 
 PB_D = 5.7410459  # J0437-like orbital period [days]
 PB_S = PB_D * 86400.0

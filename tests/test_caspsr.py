@@ -11,8 +11,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from dspsr_tpu.observation import Observation, Signal
-from dspsr_tpu.timing.mjd import MJD
+from dspsr_jax.observation import Observation, Signal
+from dspsr_jax.timing.mjd import MJD
 
 RATE = 2e6
 
@@ -38,7 +38,7 @@ def _caspsr_bytes(signed_tp):
 
 
 def test_unpack_plan_detects_caspsr():
-    from dspsr_tpu.unpack.unpackers import UnpackPlan
+    from dspsr_jax.unpack.unpackers import UnpackPlan
 
     plan = UnpackPlan(_obs())
     assert plan.layout == "caspsr" and plan.twos_complement
@@ -49,7 +49,7 @@ def test_unpack_plan_detects_caspsr():
 def test_caspsr_unpack_matches_reordered_stream(rng):
     """CASPSR bytes unpack to the same voltages as the equivalent plain TFP
     two's-complement stream."""
-    from dspsr_tpu.unpack.unpackers import UnpackPlan
+    from dspsr_jax.unpack.unpackers import UnpackPlan
 
     ndat = 4096
     signed = rng.integers(-128, 128, (ndat, 2)).astype(np.int8)
@@ -62,12 +62,14 @@ def test_caspsr_unpack_matches_reordered_stream(rng):
     assert np.array_equal(np.asarray(x_c), np.asarray(x_t))
 
 
-@pytest.mark.parametrize("engine", ["mega", "general"])
-def test_caspsr_fold_parity(tmp_path, monkeypatch, rng, engine):
+@pytest.mark.parametrize("nchan", [pytest.param(4, id="general"),
+                                   pytest.param(1, id="nsub1")])
+def test_caspsr_fold_parity(tmp_path, rng, nchan):
     """A CASPSR file folds identically to the equivalent TFP
-    two's-complement file, on both the fused and the XLA engines."""
-    from dspsr_tpu.io.sources import RawFileSource
-    from dspsr_tpu.models.load_to_fold import FoldConfig, FoldPipeline
+    two's-complement file, through the filterbank (nchan 4) and the
+    nsub == 1 convolution (nchan 1)."""
+    from dspsr_jax.io.sources import RawFileSource
+    from dspsr_jax.models.load_to_fold import FoldConfig, FoldPipeline
 
     ndat = 1 << 15
     t = np.arange(ndat) / RATE
@@ -82,22 +84,16 @@ def test_caspsr_fold_parity(tmp_path, monkeypatch, rng, engine):
     with open(p_t, "wb") as f:
         f.write(signed.reshape(-1).view(np.uint8).tobytes())
 
-    if engine == "general":
-        monkeypatch.setenv("DSPSR_TPU_NO_MEGA", "1")
-    else:
-        monkeypatch.delenv("DSPSR_TPU_NO_MEGA", raising=False)
-
-    cfg = FoldConfig(folding_period=0.005, dispersion_measure=5.0, nchan=4,
-                     nbin=32, block_parts=2, min_block_samples=0,
+    cfg = FoldConfig(folding_period=0.005, dispersion_measure=5.0,
+                     nchan=nchan, nbin=32, block_parts=2, min_block_samples=0,
                      digitizer_stats=False)
     pipe_c = FoldPipeline(RawFileSource(p_c, _obs()), cfg)
-    if engine == "mega":
-        assert pipe_c.mega_mode == "full"
-        assert pipe_c.mega_plan.twos_complement
-        assert pipe_c.mega_plan.interleave == "caspsr"
+    assert pipe_c.unpack_plan.layout == "caspsr"
+    assert pipe_c.unpack_plan.twos_complement
     res_c = pipe_c.run()
 
-    cfg_t = FoldConfig(folding_period=0.005, dispersion_measure=5.0, nchan=4,
+    cfg_t = FoldConfig(folding_period=0.005, dispersion_measure=5.0,
+                       nchan=nchan,
                        nbin=32, block_parts=2, min_block_samples=0,
                        digitizer_stats=False, twos_complement=True)
     pipe_t = FoldPipeline(RawFileSource(p_t, _obs(instrument="RAW")), cfg_t)
@@ -108,14 +104,13 @@ def test_caspsr_fold_parity(tmp_path, monkeypatch, rng, engine):
     assert np.array_equal(np.asarray(res_c.hits), np.asarray(res_t.hits))
 
 
-def test_caspsr_dada_end_to_end(tmp_path, monkeypatch, rng):
+def test_caspsr_dada_end_to_end(tmp_path, rng):
     """A DADA file with INSTRUMENT CASPSR (the benchmark header's own
     instrument) opens through the registry and recovers the pulse."""
-    from dspsr_tpu.io.dada import format_ascii_header, header_from_observation
-    from dspsr_tpu.io.sources import open_source
-    from dspsr_tpu.models.load_to_fold import FoldConfig, FoldPipeline
+    from dspsr_jax.io.dada import format_ascii_header, header_from_observation
+    from dspsr_jax.io.sources import open_source
+    from dspsr_jax.models.load_to_fold import FoldConfig, FoldPipeline
 
-    monkeypatch.delenv("DSPSR_TPU_NO_MEGA", raising=False)
     ndat = 1 << 17
     t = np.arange(ndat) / RATE
     noise = rng.normal(0, 10, (ndat, 2))
@@ -132,20 +127,18 @@ def test_caspsr_dada_end_to_end(tmp_path, monkeypatch, rng):
     pipe = FoldPipeline(src, FoldConfig(
         folding_period=0.004, dispersion_measure=5.0, nchan=4, nbin=64,
         block_parts=2, min_block_samples=0, digitizer_stats=False))
-    assert pipe.mega_mode == "full"
     res = pipe.run()
     prof = res.normalized()[0].sum(axis=(0, 1))
     snr = (prof.max() - np.median(prof)) / (prof.std() + 1e-9)
     assert snr > 1.5
 
 
-def test_caspsr_search_mode(tmp_path, monkeypatch, rng):
-    """digifil-style search over CASPSR input engages the fused front end
-    and writes the same filterbank as the equivalent plain TFP
-    two's-complement stream (same engine => identical block geometry =>
-    bit-identical requantized output)."""
-    from dspsr_tpu.io.sources import RawFileSource, open_source
-    from dspsr_tpu.models.load_to_fil import FilConfig, FilPipeline
+def test_caspsr_search_mode(tmp_path, rng):
+    """digifil-style search over CASPSR input writes the same filterbank
+    as the equivalent plain TFP two's-complement stream (identical block
+    geometry => bit-identical requantized output)."""
+    from dspsr_jax.io.sources import RawFileSource, open_source
+    from dspsr_jax.models.load_to_fil import FilConfig, FilPipeline
 
     ndat = 1 << 15
     signed = np.clip(np.round(rng.normal(0, 18, (ndat, 2))),
@@ -157,29 +150,20 @@ def test_caspsr_search_mode(tmp_path, monkeypatch, rng):
     with open(p_t, "wb") as f:
         f.write(signed.reshape(-1).view(np.uint8).tobytes())
 
-    for nomega in (False, True):
-        if nomega:
-            monkeypatch.setenv("DSPSR_TPU_NO_MEGA", "1")
-        else:
-            monkeypatch.delenv("DSPSR_TPU_NO_MEGA", raising=False)
-        cfg = FilConfig(nchan=8, nbits=8, npol_out=1, dispersion_measure=5.0)
-        pipe_c = FilPipeline(RawFileSource(p_c, _obs()), cfg)
-        if not nomega:
-            assert pipe_c._megafil is not None
-            assert pipe_c.megafil_plan.interleave == "caspsr"
-        out_c = str(tmp_path / f"c{int(nomega)}.fil")
-        pipe_c.run(out_c)
+    cfg = FilConfig(nchan=8, nbits=8, npol_out=1, dispersion_measure=5.0)
+    pipe_c = FilPipeline(RawFileSource(p_c, _obs()), cfg)
+    out_c = str(tmp_path / "c.fil")
+    pipe_c.run(out_c)
 
-        cfg_t = FilConfig(nchan=8, nbits=8, npol_out=1,
-                          dispersion_measure=5.0, twos_complement=True)
-        pipe_t = FilPipeline(RawFileSource(p_t, _obs(instrument="RAW")),
-                             cfg_t)
-        out_t = str(tmp_path / f"t{int(nomega)}.fil")
-        pipe_t.run(out_t)
+    cfg_t = FilConfig(nchan=8, nbits=8, npol_out=1,
+                      dispersion_measure=5.0, twos_complement=True)
+    pipe_t = FilPipeline(RawFileSource(p_t, _obs(instrument="RAW")), cfg_t)
+    out_t = str(tmp_path / "t.fil")
+    pipe_t.run(out_t)
 
-        a = open_source(out_c)
-        b = open_source(out_t)
-        da = a.read_samples(0, a.total_samples)
-        db = b.read_samples(0, b.total_samples)
-        assert da.size == db.size and da.size > 0
-        assert np.array_equal(da, db), f"nomega={nomega}"
+    a = open_source(out_c)
+    b = open_source(out_t)
+    da = a.read_samples(0, a.total_samples)
+    db = b.read_samples(0, b.total_samples)
+    assert da.size == db.size and da.size > 0
+    assert np.array_equal(da, db)

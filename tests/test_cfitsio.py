@@ -5,7 +5,7 @@ breaking the self-referential round-trip loop flagged in round 1."""
 import numpy as np
 import pytest
 
-from dspsr_tpu.io.cfitsio import available, CfitsioFile, verify_psrfits_fold
+from dspsr_jax.io.cfitsio import available, CfitsioFile, verify_psrfits_fold
 
 pytestmark = pytest.mark.skipif(not available(),
                                 reason="libcfitsio not present")
@@ -13,10 +13,10 @@ pytestmark = pytest.mark.skipif(not available(),
 
 @pytest.fixture(scope="module")
 def fold_result(tmp_path_factory):
-    from dspsr_tpu.observation import Observation, Signal
-    from dspsr_tpu.timing.mjd import MJD
-    from dspsr_tpu.io.sources import RawFileSource
-    from dspsr_tpu.models.load_to_fold import FoldConfig, FoldPipeline
+    from dspsr_jax.observation import Observation, Signal
+    from dspsr_jax.timing.mjd import MJD
+    from dspsr_jax.io.sources import RawFileSource
+    from dspsr_jax.models.load_to_fold import FoldConfig, FoldPipeline
 
     tmp = tmp_path_factory.mktemp("cf")
     rng = np.random.default_rng(1)
@@ -31,14 +31,14 @@ def fold_result(tmp_path_factory):
     cfg = FoldConfig(polyco_path="/root/reference/Benchmark/vela.polyco",
                      dispersion_measure=67.99, nchan=4, nbin=32,
                      block_parts=2, min_block_samples=0, passband=True,
-                     subint_seconds=0.02, use_megakernel=False,
+                     subint_seconds=0.02,
                      ephemeris_path="/root/reference/Benchmark/vela.par")
     return FoldPipeline(RawFileSource(p, obs), cfg).run(), tmp
 
 
 class TestFoldArchiveThroughCfitsio:
     def test_structure_and_values(self, fold_result):
-        from dspsr_tpu.io.psrfits import save_psrfits_fold
+        from dspsr_jax.io.psrfits import save_psrfits_fold
 
         res, tmp = fold_result
         path = str(tmp / "v.ar")
@@ -48,7 +48,7 @@ class TestFoldArchiveThroughCfitsio:
         assert metrics["max_profile_err"] < 1e-3
 
     def test_extensions_visible_to_cfitsio(self, fold_result):
-        from dspsr_tpu.io.psrfits import save_psrfits_fold
+        from dspsr_jax.io.psrfits import save_psrfits_fold
 
         res, tmp = fold_result
         path = str(tmp / "v2.ar")
@@ -70,7 +70,7 @@ class TestFoldArchiveThroughCfitsio:
         """A reader applying the PSRFITS convention v = offs + scl*data must
         reconstruct the integrated bandpass (ADVICE r2: DAT_OFFS was 0,
         shifting every value by -32768*scale/65535)."""
-        from dspsr_tpu.io.psrfits import save_psrfits_fold
+        from dspsr_jax.io.psrfits import save_psrfits_fold
 
         res, tmp = fold_result
         path = str(tmp / "vbp.ar")
@@ -89,7 +89,7 @@ class TestFoldArchiveThroughCfitsio:
         assert np.abs(v - want).max() <= step
 
     def test_primary_keywords(self, fold_result):
-        from dspsr_tpu.io.psrfits import save_psrfits_fold
+        from dspsr_jax.io.psrfits import save_psrfits_fold
 
         res, tmp = fold_result
         path = str(tmp / "v3.ar")
@@ -103,9 +103,9 @@ class TestFoldArchiveThroughCfitsio:
 
 class TestSearchFileThroughCfitsio:
     def test_search_mode_streamed_rows(self, tmp_path):
-        from dspsr_tpu.io.psrfits import PsrfitsSearchWriter
-        from dspsr_tpu.observation import Observation, Signal
-        from dspsr_tpu.timing.mjd import MJD
+        from dspsr_jax.io.psrfits import PsrfitsSearchWriter
+        from dspsr_jax.observation import Observation, Signal
+        from dspsr_jax.timing.mjd import MJD
 
         obs = Observation(nchan=8, npol=1, ndim=1, nbit=8,
                           centre_frequency=1400.0, bandwidth=-2.0, rate=1e4,

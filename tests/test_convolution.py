@@ -11,14 +11,14 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from dspsr_tpu.ops.response import Response, ResponseProduct, choose_nfft
-from dspsr_tpu.ops.dedispersion import (
+from dspsr_jax.ops.response import Response, ResponseProduct, choose_nfft
+from dspsr_jax.ops.dedispersion import (
     Dedispersion,
     delay_time,
     smearing_time,
     DM_DISPERSION,
 )
-from dspsr_tpu.ops.convolution import OverlapSavePlan, overlap_save_convolve, frame
+from dspsr_jax.ops.convolution import OverlapSavePlan, overlap_save_convolve, frame
 from scutil import sc_of, c_of
 
 

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from dspsr_tpu.apps import diagnostics
+from dspsr_jax.apps import diagnostics
 
 
 def _mkdada(path, payload: bytes, nbit=8, npol=1, ndim=1, nchan=1):
@@ -21,7 +21,7 @@ class TestDigimon:
         # 8-bit stream digitized 3x too quiet: unpacked variance << 1 ->
         # GAIN ~3; the trim (LEVEL) is held while far from good, matching
         # LevelMonitor.C:391 "don't bother adjusting the trim..."
-        from dspsr_tpu.unpack.bittable import optimal_spacing
+        from dspsr_jax.unpack.bittable import optimal_spacing
         d = optimal_spacing(8)
         sigma_codes = 1.0 / d / 3.0  # 3x too quiet
         x = rng.normal(8.0, sigma_codes, size=1 << 16)
@@ -36,7 +36,7 @@ class TestDigimon:
 
     def test_level_command(self, tmp_path, capsys, rng):
         # correct gain, +5 code offset -> LEVEL line with the unpacked mean
-        from dspsr_tpu.unpack.bittable import optimal_spacing
+        from dspsr_jax.unpack.bittable import optimal_spacing
         d = optimal_spacing(8)
         x = rng.normal(5.0, 1.0 / d, size=1 << 16)
         codes = np.clip(np.round(x) + 128, 0, 255).astype(np.uint8)
@@ -48,7 +48,7 @@ class TestDigimon:
         assert levels and 0.1 < levels[0] < 0.3, out  # 5 codes * d ~ 0.167
 
     def test_well_set_levels_quiet(self, tmp_path, capsys, rng):
-        from dspsr_tpu.unpack.bittable import optimal_spacing
+        from dspsr_jax.unpack.bittable import optimal_spacing
         d = optimal_spacing(8)
         x = rng.normal(0.0, 1.0 / d, size=1 << 16)
         codes = np.clip(np.round(x) + 128, 0, 255).astype(np.uint8)
@@ -97,8 +97,8 @@ class TestDspsrCliOptions:
         """--set / -N / -a / -e reach the pipeline (reference --set via
         TextInterface + ObservationChange; -a archive class)."""
         import numpy as np
-        from dspsr_tpu.apps.dspsr_app import main
-        from dspsr_tpu.io.fits import read_fits_headers
+        from dspsr_jax.apps.dspsr_app import main
+        from dspsr_jax.io.fits import read_fits_headers
 
         rng = np.random.default_rng(0)
         raw = str(tmp_path / "cli.raw")
@@ -124,9 +124,9 @@ class TestDspsrCliOptions:
         """--set KEY=VAL coerces by the DECLARED field type: 'False' must
         yield False for bools, and None-valued numeric fields must become
         numbers (ADVICE r2: type(cur)('False') was True; None stayed str)."""
-        from dspsr_tpu.observation import Observation, Signal
-        from dspsr_tpu.timing.mjd import MJD
-        from dspsr_tpu.apps.dspsr_app import coerce_set_value
+        from dspsr_jax.observation import Observation, Signal
+        from dspsr_jax.timing.mjd import MJD
+        from dspsr_jax.apps.dspsr_app import coerce_set_value
 
         o = Observation(nchan=1, npol=2, ndim=1, nbit=8,
                         centre_frequency=1400.0, bandwidth=-2.0, rate=1e6,
@@ -149,7 +149,7 @@ class TestThreadedClis:
     def test_dspsr_threads_option(self, tmp_path):
         """dspsr -t N runs the sharded pipeline end-to-end."""
         import numpy as np
-        from dspsr_tpu.apps.dspsr_app import main
+        from dspsr_jax.apps.dspsr_app import main
 
         rng = np.random.default_rng(1)
         raw = str(tmp_path / "t.raw")
@@ -167,10 +167,10 @@ class TestThreadedClis:
 
     def test_digifil_threads_option(self, tmp_path):
         import numpy as np
-        from dspsr_tpu.apps.digifil_app import main
-        from dspsr_tpu.io.dada import format_ascii_header, header_from_observation
-        from dspsr_tpu.observation import Observation, Signal
-        from dspsr_tpu.timing.mjd import MJD
+        from dspsr_jax.apps.digifil_app import main
+        from dspsr_jax.io.dada import format_ascii_header, header_from_observation
+        from dspsr_jax.observation import Observation, Signal
+        from dspsr_jax.timing.mjd import MJD
 
         rng = np.random.default_rng(1)
         obs = Observation(nchan=1, npol=2, ndim=1, nbit=8,
@@ -201,10 +201,10 @@ class TestCliTailOptions:
         """-m discards the trailing partial subint (reference
         PhaseSeriesUnloader::set_minimum_integration_length)."""
         import numpy as np
-        from dspsr_tpu.observation import Observation, Signal
-        from dspsr_tpu.timing.mjd import MJD
-        from dspsr_tpu.io.sources import RawFileSource
-        from dspsr_tpu.models.load_to_fold import FoldConfig, FoldPipeline
+        from dspsr_jax.observation import Observation, Signal
+        from dspsr_jax.timing.mjd import MJD
+        from dspsr_jax.io.sources import RawFileSource
+        from dspsr_jax.models.load_to_fold import FoldConfig, FoldPipeline
 
         rng = np.random.default_rng(3)
         obs = Observation(nchan=1, npol=2, ndim=1, nbit=8,
@@ -216,7 +216,7 @@ class TestCliTailOptions:
             f.write(rng.integers(0, 256, 1 << 18).astype(np.uint8).tobytes())
         base = dict(folding_period=0.004, dispersion_measure=3.0, nchan=4,
                     nbin=32, block_parts=2, min_block_samples=0,
-                    use_megakernel=False, subint_seconds=0.05)
+                    subint_seconds=0.05)
         full = FoldPipeline(RawFileSource(p, obs), FoldConfig(**base)).run()
         cut = FoldPipeline(RawFileSource(p, obs),
                            FoldConfig(minimum_integration_length=0.045,
@@ -229,7 +229,7 @@ class TestCliTailOptions:
         (reference psrsh hook)."""
         import os
         import numpy as np
-        from dspsr_tpu.apps.dspsr_app import main
+        from dspsr_jax.apps.dspsr_app import main
 
         rng = np.random.default_rng(0)
         raw = str(tmp_path / "pj.raw")
@@ -269,7 +269,7 @@ class TestDspsrCliTail:
 
     def test_source_overrides(self, tmp_path):
         import numpy as np
-        from dspsr_tpu.apps.dspsr_app import main
+        from dspsr_jax.apps.dspsr_app import main
 
         raw = self._raw(tmp_path)
         out = str(tmp_path / "o.npz")
@@ -278,7 +278,7 @@ class TestDspsrCliTail:
                    "--bandwidth=-4.0", "-f", "1500.0", "-k", "GBT",
                    "--mjd", "55299.5", "-C", "1.5"])
         assert rc == 0
-        from dspsr_tpu.io.archive import load_archive
+        from dspsr_jax.io.archive import load_archive
 
         z = load_archive(out)
         assert float(z["meta"]["centre_frequency"]) == 1500.0
@@ -290,7 +290,7 @@ class TestDspsrCliTail:
 
     def test_excision_code_and_sk_range(self, tmp_path):
         import numpy as np
-        from dspsr_tpu.apps.dspsr_app import main, build_parser
+        from dspsr_jax.apps.dspsr_app import main, build_parser
 
         args = build_parser().parse_args(
             ["x", "-2", "n256:c4.5", "--skz_start", "1", "--skz_end", "3"])
@@ -305,20 +305,20 @@ class TestDspsrCliTail:
 
     def test_excision_fixed_token(self):
         """-2 fixed selects plain BitTable 2-bit levels (no JA98)."""
-        from dspsr_tpu.apps.dspsr_app import build_parser
+        from dspsr_jax.apps.dspsr_app import build_parser
 
         args = build_parser().parse_args(["x", "-2", "fixed"])
         assert args.excision == "fixed"
         # the token maps into FoldConfig.dynamic_twobit=False (parser-level
-        # check; the pipeline behaviour is covered by
-        # test_megakernel.test_pipeline_fixed_twobit_mega_vs_general)
+        # check; the pipeline behaviour is covered by the fixed 2-bit case
+        # of test_golden.py)
 
     def test_cepoch_moves_the_peak(self, tmp_path):
         """--cepoch shifts phase zero: folding the same pulse train with a
         reference epoch offset by half a period rotates the profile by
         half a turn."""
         import numpy as np
-        from dspsr_tpu.apps.dspsr_app import main
+        from dspsr_jax.apps.dspsr_app import main
 
         rng = np.random.default_rng(1)
         ndat = 1 << 16
@@ -347,7 +347,7 @@ class TestDspsrCliTail:
     def test_single_pulse_and_nsub(self, tmp_path):
         import os
         import numpy as np
-        from dspsr_tpu.apps.dspsr_app import main
+        from dspsr_jax.apps.dspsr_app import main
 
         raw = self._raw(tmp_path, 1 << 17)
         out = str(tmp_path / "sp.npz")
@@ -362,7 +362,7 @@ class TestDspsrCliTail:
 
     def test_predictors_file(self, tmp_path):
         import numpy as np
-        from dspsr_tpu.apps.dspsr_app import main
+        from dspsr_jax.apps.dspsr_app import main
 
         raw = self._raw(tmp_path)
         pf = tmp_path / "preds.txt"
@@ -381,7 +381,7 @@ class TestDspsrCliTail:
         the 'command' a shell line the fallback executes)."""
         import os
         import numpy as np
-        from dspsr_tpu.apps.dspsr_app import main
+        from dspsr_jax.apps.dspsr_app import main
 
         raw = self._raw(tmp_path)
         out = str(tmp_path / "j.npz")
@@ -395,10 +395,10 @@ class TestDspsrCliTail:
 
 
 def test_sklimit_cli(capsys):
-    """sklimit-tpu prints the Pearson-IV SK thresholds sweep (reference
+    """sklimit-jax prints the Pearson-IV SK thresholds sweep (reference
     Signal/Statistics/sklimit.C)."""
-    from dspsr_tpu.apps.diagnostics import sklimit
-    from dspsr_tpu.utils.stats import sk_limits
+    from dspsr_jax.apps.diagnostics import sklimit
+    from dspsr_jax.utils.stats import sk_limits
 
     assert sklimit(["-m", "128", "-M", "256", "-s", "3"]) == 0
     out = capsys.readouterr().out.strip().splitlines()

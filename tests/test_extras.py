@@ -4,11 +4,11 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from dspsr_tpu.ops.apodization import WindowType, build_window
-from dspsr_tpu.ops.polyphase import (
+from dspsr_jax.ops.apodization import WindowType, build_window
+from dspsr_jax.ops.polyphase import (
     PolyphasePlan, polyphase_filterbank_block, prototype_lowpass,
 )
-from dspsr_tpu.ops.fourth_moment import fourth_moment, PAIRS
+from dspsr_jax.ops.fourth_moment import fourth_moment, PAIRS
 from scutil import sc_of, c_of
 
 
@@ -51,7 +51,7 @@ class TestPolyphase:
     def test_channel_isolation_beats_fft(self):
         """PFB leakage into a neighbouring channel is far below the plain
         critically-sampled FFT filterbank's (the PFB's raison d'etre)."""
-        from dspsr_tpu.ops.filterbank import FilterbankPlan, filterbank_block
+        from dspsr_jax.ops.filterbank import FilterbankPlan, filterbank_block
 
         nc = 16
         taps = 12
@@ -104,7 +104,7 @@ class TestFourthMoment:
 
 class TestCyclicFold:
     def test_lag_zero_is_power(self, rng):
-        from dspsr_tpu.ops.cyclic import lag_products
+        from dspsr_jax.ops.cyclic import lag_products
         x = (rng.standard_normal((1, 1, 64))
              + 1j * rng.standard_normal((1, 1, 64))).astype(np.complex64)
         cr, ci = lag_products(sc_of(x), 4)
@@ -113,7 +113,7 @@ class TestCyclicFold:
         np.testing.assert_allclose(np.asarray(ci)[0, 0, 0], 0, atol=1e-5)
 
     def test_hermitian_property(self, rng):
-        from dspsr_tpu.ops.cyclic import lag_products
+        from dspsr_jax.ops.cyclic import lag_products
         x = (rng.standard_normal((1, 1, 128))
              + 1j * rng.standard_normal((1, 1, 128))).astype(np.complex64)
         cr, ci = lag_products(sc_of(x), 3)
@@ -124,7 +124,7 @@ class TestCyclicFold:
                 c[l], ref[l:l+126] * np.conj(ref[:126]), rtol=1e-5, atol=1e-5)
 
     def test_pipeline_cyclic_fold(self, tmp_path):
-        from dspsr_tpu.models.load_to_fold import FoldConfig, load_to_fold
+        from dspsr_jax.models.load_to_fold import FoldConfig, load_to_fold
         from test_pipeline import synth_pulsar_dada, PERIOD, DM, PULSE_PHASE
 
         p = synth_pulsar_dada(str(tmp_path / "cyc.dada"), nsec=0.2)
@@ -146,7 +146,7 @@ class TestCyclicFold:
 class TestJonesConvolution:
     def test_identity_jones_matches_scalar(self, rng):
         """Identity Jones response == plain convolution per pol."""
-        from dspsr_tpu.ops.convolution import (
+        from dspsr_jax.ops.convolution import (
             OverlapSavePlan, overlap_save_convolve, overlap_save_convolve_jones)
         n_fft, nfp, nfn = 128, 8, 8
         plan = OverlapSavePlan(False, n_fft, nfp, nfn)
@@ -164,7 +164,7 @@ class TestJonesConvolution:
 
     def test_swap_jones(self, rng):
         """Anti-diagonal Jones swaps the polarizations."""
-        from dspsr_tpu.ops.convolution import (
+        from dspsr_jax.ops.convolution import (
             OverlapSavePlan, overlap_save_convolve_jones)
         n_fft = 64
         plan = OverlapSavePlan(False, n_fft, 0, 0)
@@ -183,7 +183,7 @@ class TestJonesConvolution:
 
 class TestSkyCoord:
     def test_parse_format_roundtrip(self):
-        from dspsr_tpu.timing.skycoord import SkyCoord
+        from dspsr_jax.timing.skycoord import SkyCoord
         c = SkyCoord.parse("08:35:20.61149", "-45:10:34.8751")
         assert c.ra_hms().startswith("08:35:20.61")
         assert c.dec_dms().startswith("-45:10:34.87")
@@ -193,7 +193,7 @@ class TestSkyCoord:
 
 class TestAutocorrelation:
     def test_tone_spectrum(self):
-        from dspsr_tpu.ops.autocorrelation import autocorrelation, acf_spectra
+        from dspsr_jax.ops.autocorrelation import autocorrelation, acf_spectra
         nlag = 17
         n = 8192
         f = 0.125  # cycles/sample
@@ -209,7 +209,7 @@ class TestAutocorrelation:
         np.testing.assert_allclose(mag, 1.0, atol=1e-5)
 
     def test_acf_filterbank_time_resolved(self, rng):
-        from dspsr_tpu.ops.autocorrelation import acf_filterbank
+        from dspsr_jax.ops.autocorrelation import acf_filterbank
         n = 4096
         x = (rng.standard_normal(n) + 1j * rng.standard_normal(n)).astype(np.complex64)
         x[: n // 2] *= 10.0  # louder first half
@@ -229,8 +229,8 @@ class TestACFilterbank:
         return c.astype(np.complex128)
 
     def test_psd_matches_numpy(self):
-        from dspsr_tpu.ops.autocorrelation import ac_filterbank
-        from dspsr_tpu.ops import sc
+        from dspsr_jax.ops.autocorrelation import ac_filterbank
+        from dspsr_jax.ops import sc
         c = self._signal()
         nchan, nlag = 64, 32
         ngood = nchan - nlag
@@ -247,8 +247,8 @@ class TestACFilterbank:
         assert float(jnp.max(jnp.abs(pi))) == 0.0
 
     def test_acf_is_noncyclic(self):
-        from dspsr_tpu.ops.autocorrelation import ac_filterbank
-        from dspsr_tpu.ops import sc
+        from dspsr_jax.ops.autocorrelation import ac_filterbank
+        from dspsr_jax.ops import sc
         c = self._signal()
         nchan, nlag = 64, 32
         ngood = nchan - nlag
@@ -270,8 +270,8 @@ class TestOptimalFFT:
     """Measured FFT-length selection (OptimalFFT.C equivalent)."""
 
     def test_best_ndat_covers_smear_and_caches(self, tmp_path, monkeypatch):
-        import dspsr_tpu.utils.optimalfft as off
-        monkeypatch.setattr(off, "_CACHE_DIR", str(tmp_path))
+        import dspsr_jax.utils.optimalfft as off
+        monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
         bench = off.FFTBench(batch=2, trials=1)
         opt = off.OptimalFFT(bench)
         n = opt.get_best_ndat(nfilt_tot=100, max_nfft=1 << 14)
@@ -284,16 +284,25 @@ class TestOptimalFFT:
 
 class TestCompilationCache:
     def test_enable_compilation_cache_sets_config(self, tmp_path, monkeypatch):
-        """Persistent compile cache knob (reference OptimalFFT plan-cache
-        analogue): config points at the requested directory; '0' disables."""
-        import jax
-        from dspsr_tpu.utils.platform import enable_compilation_cache
-
-        d = str(tmp_path / "jaxcache")
-        got = enable_compilation_cache(d)
-        assert got == d
-        assert jax.config.jax_compilation_cache_dir == d
+        """Persistent compile cache (reference OptimalFFT plan-cache
+        analogue): .jax_cache/ in the checkout unless
+        JAX_COMPILATION_CACHE_DIR names one, which JAX reads itself."""
         import os
-        assert os.path.isdir(d)
-        monkeypatch.setenv("DSPSR_TPU_CACHE_DIR", "0")
-        assert enable_compilation_cache() is None
+        import jax
+        from dspsr_jax.utils import platform
+
+        before = jax.config.jax_compilation_cache_dir
+        try:
+            monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+            d = platform.enable_compilation_cache()
+            assert d == os.path.join(platform.CHECKOUT, ".jax_cache")
+            assert jax.config.jax_compilation_cache_dir == d
+            assert os.path.isdir(d)
+            jax.config.update("jax_compilation_cache_dir", before)
+            env = str(tmp_path / "jaxcache")
+            monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", env)
+            assert platform.enable_compilation_cache() == env
+            # the code configures no directory of its own
+            assert jax.config.jax_compilation_cache_dir == before
+        finally:
+            jax.config.update("jax_compilation_cache_dir", before)

@@ -14,12 +14,12 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from dspsr_tpu.observation import Observation, Signal
-from dspsr_tpu.ops.filterbank import FilterbankPlan, filterbank_block, update_observation
-from dspsr_tpu.ops.dedispersion import Dedispersion
-from dspsr_tpu.ops.convolution import OverlapSavePlan, overlap_save_convolve
-from dspsr_tpu.ops.response import Response
-from dspsr_tpu.ops import detection
+from dspsr_jax.observation import Observation, Signal
+from dspsr_jax.ops.filterbank import FilterbankPlan, filterbank_block, update_observation
+from dspsr_jax.ops.dedispersion import Dedispersion
+from dspsr_jax.ops.convolution import OverlapSavePlan, overlap_save_convolve
+from dspsr_jax.ops.response import Response
+from dspsr_jax.ops import detection
 from scutil import sc_of, c_of
 
 

@@ -4,9 +4,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from dspsr_tpu.timing.mjd import MJD
-from dspsr_tpu.timing.polyco import FixedPeriodPredictor
-from dspsr_tpu.ops.fold import (
+from dspsr_jax.timing.mjd import MJD
+from dspsr_jax.timing.polyco import FixedPeriodPredictor
+from dspsr_jax.ops.fold import (
     FoldPlan,
     choose_nbin,
     compute_anchors,

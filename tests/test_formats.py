@@ -5,10 +5,10 @@ import struct
 import numpy as np
 import pytest
 
-from dspsr_tpu.io import open_source
-from dspsr_tpu.io.vdif import VDIFFile, parse_vdif_header, _epoch_to_mjd
-from dspsr_tpu.io.guppi import GuppiRawFile
-from dspsr_tpu.observation import Signal
+from dspsr_jax.io import open_source
+from dspsr_jax.io.vdif import VDIFFile, parse_vdif_header, _epoch_to_mjd
+from dspsr_jax.io.guppi import GuppiRawFile
+from dspsr_jax.observation import Signal
 
 
 def make_vdif(path, nframes=32, payload=1024, nchan=1, nbit=8, cplx=True,
@@ -139,7 +139,7 @@ class TestGuppi:
 
     def test_fold_guppi_pipeline(self, tmp_path):
         """GUPPI file flows through the fold pipeline (twos-complement)."""
-        from dspsr_tpu.models.load_to_fold import FoldConfig, FoldPipeline
+        from dspsr_jax.models.load_to_fold import FoldConfig, FoldPipeline
         p = str(tmp_path / "g3.raw")
         make_guppi(p, nblocks=8, ntime=4096, nchan=2)
         src = open_source(p)
@@ -162,7 +162,7 @@ class TestMultiplex:
             f.write(payload)
 
     def test_packet_interleave(self, tmp_path):
-        from dspsr_tpu.io.sources import Multiplex
+        from dspsr_jax.io.sources import Multiplex
         P = Multiplex.PACKET
         a = str(tmp_path / "a.dada")
         b = str(tmp_path / "b.dada")
@@ -181,7 +181,7 @@ class TestMultiplex:
         assert list(t) == [0xAA] * 5 + [0xBB] * 5
 
     def test_list_file_probe(self, tmp_path):
-        from dspsr_tpu.io.sources import Multiplex, open_source
+        from dspsr_jax.io.sources import Multiplex, open_source
         P = Multiplex.PACKET
         a = str(tmp_path / "a.dada")
         b = str(tmp_path / "b.dada")
@@ -200,9 +200,9 @@ class TestBlockFileAndPresto:
     def test_blockfile_skips_per_block_headers(self, tmp_path):
         """Generic BlockFile: payload reassembled across framed blocks
         (Kernel/Classes/BlockFile.C)."""
-        from dspsr_tpu.io.sources import BlockFileSource
-        from dspsr_tpu.observation import Observation, Signal
-        from dspsr_tpu.timing.mjd import MJD
+        from dspsr_jax.io.sources import BlockFileSource
+        from dspsr_jax.observation import Observation, Signal
+        from dspsr_jax.timing.mjd import MJD
 
         rng = np.random.default_rng(0)
         payload = rng.integers(0, 256, 1000).astype(np.uint8)
@@ -226,7 +226,7 @@ class TestBlockFileAndPresto:
                                       payload[37:287])
 
     def test_presto_inf(self, tmp_path):
-        from dspsr_tpu.io.sources import observation_from_presto_inf
+        from dspsr_jax.io.sources import observation_from_presto_inf
 
         p = str(tmp_path / "x.inf")
         with open(p, "w") as f:
@@ -254,8 +254,8 @@ class TestBlockFileAndPresto:
 class TestPolnReshape:
     def test_coherence_stokes_roundtrip(self):
         import jax.numpy as jnp
-        from dspsr_tpu.ops.scrunch import poln_reshape
-        from dspsr_tpu.observation import Signal
+        from dspsr_jax.ops.scrunch import poln_reshape
+        from dspsr_jax.observation import Signal
 
         rng = np.random.default_rng(0)
         x = jnp.asarray(rng.standard_normal((3, 4, 8)).astype(np.float32))
@@ -318,7 +318,7 @@ class TestVDIFMultiThread:
         np.testing.assert_array_equal(a, b)
 
     def test_two_bit_threads_repack(self, tmp_path):
-        from dspsr_tpu.unpack.unpackers import bytes_to_codes
+        from dspsr_jax.unpack.unpackers import bytes_to_codes
         import jax.numpy as jnp
 
         p = str(tmp_path / "mt2.vdif")
@@ -353,10 +353,9 @@ class TestVDIFMultiThread:
         with pytest.raises(ValueError):
             open_source(p)
 
-    def test_multithread_folds_end_to_end(self, tmp_path, monkeypatch):
-        from dspsr_tpu.models.load_to_fold import FoldConfig, FoldPipeline
+    def test_multithread_folds_end_to_end(self, tmp_path):
+        from dspsr_jax.models.load_to_fold import FoldConfig, FoldPipeline
 
-        monkeypatch.delenv("DSPSR_TPU_NO_MEGA", raising=False)
         p = str(tmp_path / "mtf.vdif")
         make_vdif_multithread(p, nthread=2, nframes_per_thread=64)
         with open(p + ".hdr", "w") as f:
@@ -391,7 +390,7 @@ def make_mark5b(path, nframes=16, frames_per_sec=4, mjd=58100, sec=4321,
     recorders do — the reader must NOT add it on top of the frame-counter
     offset.
     """
-    from dspsr_tpu.io.mark5b import FRAME_BYTES, HEADER_BYTES, MARK5B_SYNC
+    from dspsr_jax.io.mark5b import FRAME_BYTES, HEADER_BYTES, MARK5B_SYNC
 
     rng = np.random.default_rng(seed)
     payload = FRAME_BYTES - HEADER_BYTES
@@ -412,7 +411,7 @@ def make_mark5b(path, nframes=16, frames_per_sec=4, mjd=58100, sec=4321,
 
 class TestMark5B:
     def test_probe_geometry_time(self, tmp_path):
-        from dspsr_tpu.io.mark5b import Mark5BFile
+        from dspsr_jax.io.mark5b import Mark5BFile
 
         p = str(tmp_path / "t.m5b")
         make_mark5b(p)
@@ -442,7 +441,7 @@ class TestMark5B:
         from the counter; the reader must fail loudly unless the sidecar
         provides FPS or SAMPLE_RATE (ADVICE r4)."""
         import pytest
-        from dspsr_tpu.io.mark5b import Mark5BFile
+        from dspsr_jax.io.mark5b import Mark5BFile
 
         p = str(tmp_path / "short.m5b")
         make_mark5b(p, nframes=3, frames_per_sec=4)  # all in one second
@@ -470,9 +469,9 @@ class TestMark5B:
 
     def test_sidecar_and_fold(self, tmp_path):
         """Sidecar geometry applies, and the 2-bit stream folds through
-        the pipeline on the FIXED-LEVEL fused path (MARK5B instrument
-        default: no JA98 dynamic correction)."""
-        from dspsr_tpu.models.load_to_fold import FoldPipeline, FoldConfig
+        the pipeline with FIXED 2-bit levels (MARK5B instrument default:
+        no JA98 dynamic correction)."""
+        from dspsr_jax.models.load_to_fold import FoldPipeline, FoldConfig
 
         p = str(tmp_path / "t3.m5b")
         make_mark5b(p, nframes=32)
@@ -488,6 +487,5 @@ class TestMark5B:
                          frequency_resolution=1024)
         pipe = FoldPipeline(src, cfg)
         assert pipe.unpack_plan.twobit is None  # fixed-level (mark5access)
-        assert pipe.mega_plan is not None and pipe.mega_plan.npw == 0
         res = pipe.run()
         assert np.asarray(res.hits).sum() > 0

@@ -6,7 +6,7 @@ import math
 import numpy as np
 import pytest
 
-from dspsr_tpu.ops.geometric import (
+from dspsr_jax.ops.geometric import (
     GeometricDelay, source_unit_vector, C_M_PER_S)
 
 
@@ -28,7 +28,7 @@ def test_delay_rate_matches_numeric_derivative():
     h, d = 0.3, -0.7
     g = GeometricDelay(b, h, d)
     eps = 1e-6  # radians of hour angle
-    from dspsr_tpu.ops.geometric import OMEGA_EARTH
+    from dspsr_jax.ops.geometric import OMEGA_EARTH
     gp = GeometricDelay(b, h + eps, d)
     gm = GeometricDelay(b, h - eps, d)
     num = (gp.delays_seconds() - gm.delays_seconds()) / (2 * eps) * OMEGA_EARTH

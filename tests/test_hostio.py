@@ -7,12 +7,12 @@ import time
 import numpy as np
 import pytest
 
-from dspsr_tpu.io.hostio import (
+from dspsr_jax.io.hostio import (
     load_hostio, PrefetchSource, RingWriter, RingReader,
 )
-from dspsr_tpu.io.sources import open_source
-from dspsr_tpu.observation import Observation, Signal
-from dspsr_tpu.timing.mjd import MJD
+from dspsr_jax.io.sources import open_source
+from dspsr_jax.observation import Observation, Signal
+from dspsr_jax.timing.mjd import MJD
 from test_pipeline import synth_pulsar_dada, RATE
 
 
@@ -59,7 +59,7 @@ class TestPrefetch:
 
 class TestRing:
     def test_header_and_data_roundtrip(self, lib):
-        name = f"/dspsr_tpu_test_{os.getpid()}"
+        name = f"/dspsr_jax_test_{os.getpid()}"
         obs = Observation(nchan=2, npol=2, ndim=2, nbit=8,
                           centre_frequency=1400.0, bandwidth=16.0, rate=16e6,
                           state=Signal.ANALYTIC, source="RINGTEST",
@@ -96,7 +96,7 @@ class TestRing:
             w.close(unlink=True)
 
     def test_backpressure(self, lib):
-        name = f"/dspsr_tpu_bp_{os.getpid()}"
+        name = f"/dspsr_jax_bp_{os.getpid()}"
         obs = Observation(nchan=1, npol=1, ndim=1, nbit=8, rate=1e6,
                           centre_frequency=1400.0, bandwidth=1.0,
                           state=Signal.NYQUIST, start_time=MJD(55000, 0.0))
@@ -112,12 +112,12 @@ class TestRing:
 class TestLivePipeline:
     def test_fold_from_ring(self, lib, tmp_path):
         """End-to-end live mode: writer feeds ring, fold pipeline consumes."""
-        from dspsr_tpu.models.load_to_fold import FoldConfig, FoldPipeline
+        from dspsr_jax.models.load_to_fold import FoldConfig, FoldPipeline
         from test_pipeline import synth_pulsar_dada, PERIOD, DM, PULSE_PHASE
 
         p = synth_pulsar_dada(str(tmp_path / "live.dada"), nsec=0.1)
         file_src = open_source(p)
-        name = f"/dspsr_tpu_live_{os.getpid()}"
+        name = f"/dspsr_jax_live_{os.getpid()}"
 
         nsamp_buf = 65536
         buf_bytes = nsamp_buf * file_src.bytes_per_sample_exact()
@@ -161,12 +161,12 @@ class TestLivePipeline:
         host-side (Seekable.C:197-222 recycling), so the coherent pipeline
         runs on a live stream and matches the offline fold of the same
         bytes."""
-        from dspsr_tpu.models.load_to_fold import FoldConfig, FoldPipeline
+        from dspsr_jax.models.load_to_fold import FoldConfig, FoldPipeline
         from test_pipeline import synth_pulsar_dada, PERIOD, DM
 
         p = synth_pulsar_dada(str(tmp_path / "livedm.dada"), nsec=0.15)
         file_src = open_source(p)
-        name = f"/dspsr_tpu_livedm_{os.getpid()}"
+        name = f"/dspsr_jax_livedm_{os.getpid()}"
 
         nsamp_buf = 16384
         buf_bytes = nsamp_buf * file_src.bytes_per_sample_exact()
@@ -200,10 +200,11 @@ class TestLivePipeline:
         finally:
             w.close(unlink=True)
 
+        # every folded output sample has weight 1 (the fold's segment
+        # padding carries zero weight)
         nchan = res_live.obs.nchan
-        nuse = -(-pipe.out_per_block // pipe.fold_plan.seg_len) \
-            * pipe.fold_plan.seg_len
-        nblocks_live = int(round(res_live.hits.sum() / (nchan * nuse)))
+        nblocks_live = int(round(res_live.hits.sum()
+                                 / (nchan * pipe.out_per_block)))
         assert nblocks_live >= 2
 
         off = FoldPipeline(open_source(p), cfg)
@@ -224,7 +225,7 @@ class TestDadaSysVRing:
         return 0x5A000 + (os.getpid() % 0x7FF) * 2
 
     def test_header_and_data_roundtrip(self, lib):
-        from dspsr_tpu.io.hostio import DadaWriter, DadaReader
+        from dspsr_jax.io.hostio import DadaWriter, DadaReader
 
         key = self._key()
         obs = Observation(nchan=2, npol=2, ndim=2, nbit=8,
@@ -267,7 +268,7 @@ class TestDadaSysVRing:
         import ctypes
         import ctypes.util
 
-        from dspsr_tpu.io.hostio import DadaWriter
+        from dspsr_jax.io.hostio import DadaWriter
 
         key = self._key() + 0x1000
         obs = Observation(nchan=1, npol=1, ndim=1, nbit=8, rate=1e6,
@@ -290,7 +291,7 @@ class TestDadaSysVRing:
         assert libc.shmget(key, 0, 0o600) < 0
 
     def test_blocking_backpressure_and_timeout(self, lib):
-        from dspsr_tpu.io.hostio import DadaWriter, DadaReader
+        from dspsr_jax.io.hostio import DadaWriter, DadaReader
 
         key = self._key() + 0x2000
         obs = Observation(nchan=1, npol=1, ndim=1, nbit=8, rate=1e6,
@@ -317,8 +318,8 @@ class TestDadaSysVRing:
         import subprocess
         import sys
 
-        from dspsr_tpu.io.hostio import DadaReader
-        from dspsr_tpu.models.load_to_fold import FoldConfig, FoldPipeline
+        from dspsr_jax.io.hostio import DadaReader
+        from dspsr_jax.models.load_to_fold import FoldConfig, FoldPipeline
 
         key = self._key() + 0x3000
         path = synth_pulsar_dada(str(tmp_path / "dd.dada"), nsec=0.08)
@@ -326,8 +327,8 @@ class TestDadaSysVRing:
         code = f"""
 import sys, numpy as np
 sys.path.insert(0, {repr(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))})
-from dspsr_tpu.io.hostio import DadaWriter
-from dspsr_tpu.io.sources import open_source
+from dspsr_jax.io.hostio import DadaWriter
+from dspsr_jax.io.sources import open_source
 src = open_source({path!r})
 w = DadaWriter({key}, src.obs, {buf_bytes}, nbufs=8)
 bps = src.bytes_per_sample_exact()
@@ -354,7 +355,7 @@ w.close(destroy=False)
 
             cfg = FoldConfig(folding_period=PERIOD, dispersion_measure=DM,
                              nchan=4, nbin=32, block_parts=2,
-                             min_block_samples=0, use_megakernel=False)
+                             min_block_samples=0)
             pipe = FoldPipeline(r, cfg)
             res = pipe.run(max_blocks=4)
             assert res.hits.sum() > 0

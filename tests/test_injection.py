@@ -12,8 +12,8 @@ closed-form arithmetic and asserts the pipeline recovers the *physics*:
 - ``FoldResult.dedispersed()`` and the -K aligned fold must line the peaks
   up across channels;
 - recovered width and S/N must match the injection;
-- all of it must hold identically through the general XLA path, the Pallas
-  megakernel path, and the (time, chan)-sharded pipeline.
+- all of it must hold identically through the single-device pipeline, with
+  real or complex input, and the (time, chan)-sharded pipeline.
 
 This mirrors the role of the reference's de-facto integration test
 ``Benchmark/fold.csh`` (fold a known pulsar, check the result), with the
@@ -25,10 +25,10 @@ import dataclasses
 import numpy as np
 import pytest
 
-from dspsr_tpu.observation import Observation, Signal
-from dspsr_tpu.timing.mjd import MJD
-from dspsr_tpu.io.sources import RawFileSource
-from dspsr_tpu.models.load_to_fold import FoldConfig, FoldPipeline
+from dspsr_jax.observation import Observation, Signal
+from dspsr_jax.timing.mjd import MJD
+from dspsr_jax.io.sources import RawFileSource
+from dspsr_jax.models.load_to_fold import FoldConfig, FoldPipeline
 
 #: classic dispersion constant (Lorimer & Kramer eq. 4.7): seconds of delay
 #: = K_DM * DM[pc cm^-3] * f[MHz]^-2
@@ -174,8 +174,8 @@ class TestComplexInjection:
             fwhm_bins, expect)
 
     def test_sharded_recovers_same_physics(self, complex_setup):
-        from dspsr_tpu.parallel.sharded import make_mesh
-        from dspsr_tpu.parallel.pipeline import ShardedFoldPipeline
+        from dspsr_jax.parallel.sharded import make_mesh
+        from dspsr_jax.parallel.pipeline import ShardedFoldPipeline
 
         obs, cfg, path, freqs, fref = complex_setup
         cfg_s = dataclasses.replace(cfg, min_block_samples=1 << 14)
@@ -188,8 +188,8 @@ class TestComplexInjection:
 
 
 class TestRealInputInjection:
-    """Same physics through the real-Nyquist input path — which engages the
-    Pallas megakernel — and the general path with it disabled."""
+    """Same physics through the real-Nyquist input path, at two block
+    geometries."""
 
     @pytest.fixture(scope="class")
     def real_setup(self, tmp_path_factory):
@@ -206,7 +206,6 @@ class TestRealInputInjection:
         with open(path0, "wb") as f:
             f.write(np.zeros(1 << 17, np.uint8).tobytes())
         pipe0 = FoldPipeline(RawFileSource(path0, obs), cfg)
-        assert pipe0.mega_plan is not None
         freqs = chan_freqs(pipe0.obs_out)
         fref = freqs.max()
 
@@ -235,15 +234,16 @@ class TestRealInputInjection:
             f.write(q.reshape(-1).tobytes())
         return obs, cfg, path, freqs, fref
 
-    @pytest.mark.parametrize("engine", ["mega", "general"])
-    def test_peaks_at_predicted_phases(self, real_setup, engine, monkeypatch):
+    @pytest.mark.parametrize("block_parts", [pytest.param(None, id="general"),
+                                             pytest.param(3, id="3")])
+    def test_peaks_at_predicted_phases(self, real_setup, block_parts):
+        import dataclasses
+
         obs, cfg, path, freqs, fref = real_setup
-        if engine == "general":
-            monkeypatch.setenv("DSPSR_TPU_NO_MEGA", "1")
-        else:
-            monkeypatch.delenv("DSPSR_TPU_NO_MEGA", raising=False)
+        if block_parts is not None:
+            cfg = dataclasses.replace(cfg, block_parts=block_parts,
+                                      min_block_samples=0)
         pipe = FoldPipeline(RawFileSource(path, obs), cfg)
-        assert (pipe.mega_plan is not None) == (engine == "mega")
         res = pipe.run()
         got, prof = _peak_phases(res)
         want = predicted_phases(freqs, fref)

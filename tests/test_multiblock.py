@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from dspsr_tpu.models.load_to_fold import FoldConfig, load_to_fold
+from dspsr_jax.models.load_to_fold import FoldConfig, load_to_fold
 from test_pipeline import synth_pulsar_dada, PERIOD, DM, PULSE_PHASE
 
 

@@ -1,7 +1,7 @@
 """Multi-process fold driver parity (the MPIRoot claim, proven).
 
 The reference validates cluster operation with test_MPIRoot over mpirun on
-localhost (SURVEY.md §4); the TPU-native equivalent: 2 OS processes x 4
+localhost (SURVEY.md §4); the equivalent here: 2 OS processes x 4
 virtual CPU devices each, joined by ``jax.distributed``, must produce the
 SAME archive as the 1-process x 8-device sharded run and the plain
 single pipeline — with each process having read only its own stripes.
@@ -13,13 +13,13 @@ import json
 import numpy as np
 import pytest
 
-from dspsr_tpu.observation import Observation, Signal
-from dspsr_tpu.timing.mjd import MJD
-from dspsr_tpu.io.dada import format_ascii_header, header_from_observation
-from dspsr_tpu.io.sources import open_source
-from dspsr_tpu.models.load_to_fold import FoldConfig, FoldPipeline
-from dspsr_tpu.parallel.sharded import make_mesh
-from dspsr_tpu.parallel.pipeline import ShardedFoldPipeline
+from dspsr_jax.observation import Observation, Signal
+from dspsr_jax.timing.mjd import MJD
+from dspsr_jax.io.dada import format_ascii_header, header_from_observation
+from dspsr_jax.io.sources import open_source
+from dspsr_jax.models.load_to_fold import FoldConfig, FoldPipeline
+from dspsr_jax.parallel.sharded import make_mesh
+from dspsr_jax.parallel.pipeline import ShardedFoldPipeline
 
 RATE = 1e6
 
@@ -43,13 +43,13 @@ def _write_dada(tmp_path, nbytes, seed=7):
 
 
 CFG = dict(folding_period=0.004, dispersion_measure=3.0, nchan=4, nbin=32,
-           block_parts=2, min_block_samples=1 << 15, use_megakernel=False)
+           block_parts=2, min_block_samples=1 << 15)
 
 
 def test_two_process_parity(tmp_path):
     """2 processes x 4 devices == 1 process x 8 devices == single pipeline
     (profiles, hits, subint metadata, digitizer counts)."""
-    from dspsr_tpu.parallel.multiproc import launch_fold
+    from dspsr_jax.parallel.multiproc import launch_fold
 
     cfg = FoldConfig(**CFG)
     # size the file to exactly 2 superblocks (probe geometry first)

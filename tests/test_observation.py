@@ -1,7 +1,7 @@
 """Tests for Observation metadata and DADA header parsing."""
 
-from dspsr_tpu.observation import Observation, Signal
-from dspsr_tpu.io.dada import (
+from dspsr_jax.observation import Observation, Signal
+from dspsr_jax.io.dada import (
     parse_ascii_header,
     format_ascii_header,
     observation_from_header,

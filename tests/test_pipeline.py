@@ -6,17 +6,18 @@ check the folded profile: pulse at the right phase, correct metadata, archive
 round trip.
 """
 
+import dataclasses
 import os
 
 import numpy as np
 import pytest
 
-from dspsr_tpu.io.dada import format_ascii_header
-from dspsr_tpu.io.sources import open_source, DADAFile, DummySource, MultiFile
-from dspsr_tpu.io.archive import save_archive, load_archive, filename_epoch
-from dspsr_tpu.models.load_to_fold import FoldConfig, FoldPipeline, load_to_fold
-from dspsr_tpu.observation import Signal
-from dspsr_tpu.ops.dedispersion import Dedispersion
+from dspsr_jax.io.dada import format_ascii_header
+from dspsr_jax.io.sources import open_source, DADAFile, DummySource, MultiFile
+from dspsr_jax.io.archive import save_archive, load_archive, filename_epoch
+from dspsr_jax.models.load_to_fold import FoldConfig, FoldPipeline, load_to_fold
+from dspsr_jax.observation import Signal
+from dspsr_jax.ops.dedispersion import Dedispersion
 
 
 PULSE_PHASE = 0.3
@@ -167,7 +168,7 @@ class TestFoldPipeline:
         # per-channel profiles retain inter-channel dispersion delay (as in
         # reference archives); each channel peaks at phase0 + delay(f_c)/P
         raw = res.normalized()[0]
-        from dspsr_tpu.ops.dedispersion import delay_time
+        from dspsr_jax.ops.dedispersion import delay_time
         for c in range(4):
             dphi = delay_time(DM, res.obs.centre_frequency_of(c), CF) / PERIOD
             expect = (PULSE_PHASE + dphi) % 1.0
@@ -215,7 +216,7 @@ class TestInterchannelAlign:
     def test_channels_align_to_highest_frequency(self, pulsar_file):
         """-K equivalent: the delay ramp in the chirp aligns all channels to
         the arrival time at the highest frequency in the band."""
-        from dspsr_tpu.ops.dedispersion import delay_time
+        from dspsr_jax.ops.dedispersion import delay_time
 
         cfg = FoldConfig(folding_period=PERIOD, dispersion_measure=DM,
                          nchan=4, block_parts=2, interchannel_align=True)
@@ -268,7 +269,7 @@ class TestDump:
         # fixed-period folding references phase 0 to each file's own start
         # (as the reference's -c does), so the dump's nfilt_pos start shift
         # appears as a constant phase offset between the two runs
-        from dspsr_tpu.io.sources import open_source
+        from dspsr_jax.io.sources import open_source
         shift = (((open_source(dump).obs.start_time
                    - open_source(pulsar_file).obs.start_time) / PERIOD) % 1.0)
         expect = (p1.argmax() / res1.nbin - shift) % 1.0
@@ -333,8 +334,8 @@ class TestSubintEpochs:
 
     def test_archive_offs_sub_gap_aware(self, pulsar_file, tmp_path):
         """OFFS_SUB in the written archive = epoch - obs start + tsub/2."""
-        from dspsr_tpu.io.psrfits import save_psrfits_fold
-        from dspsr_tpu.io.psrfits_in import load_psrfits_fold
+        from dspsr_jax.io.psrfits import save_psrfits_fold
+        from dspsr_jax.io.psrfits_in import load_psrfits_fold
 
         cfg = FoldConfig(folding_period=PERIOD, dispersion_measure=DM,
                          nchan=4, block_parts=2, subint_seconds=0.011,
@@ -376,20 +377,20 @@ class TestSampleExactDivide:
             np.testing.assert_allclose(got, want, rtol=0, atol=0.5)
             assert abs(res.integration_length[k] * rate_out - want) < 0.5
 
-    def test_engine_parity_at_boundary(self, pulsar_file, monkeypatch):
-        """Fused and XLA engines produce identical division bookkeeping
-        and closely matching per-subint profiles with a mid-block -L."""
+    def test_engine_parity_at_boundary(self, pulsar_file):
+        """Two block geometries (2 and 3 FFT windows per block) produce
+        identical division bookkeeping and closely matching per-subint
+        profiles with a mid-block -L."""
         sub = 0.013
         cfg = FoldConfig(folding_period=PERIOD, dispersion_measure=DM,
                          nchan=4, block_parts=2, subint_seconds=sub,
                          min_block_samples=0, digitizer_stats=False)
-        monkeypatch.delenv("DSPSR_TPU_NO_MEGA", raising=False)
         r_mega = FoldPipeline(open_source(pulsar_file), cfg).run()
-        monkeypatch.setenv("DSPSR_TPU_NO_MEGA", "1")
-        r_xla = FoldPipeline(open_source(pulsar_file), cfg).run()
-        # the engines pick different block geometries, so the amount of
-        # tail data consumed (whole blocks only) differs: compare the
-        # common FULL subints; the final partial one is geometry-dependent
+        r_xla = FoldPipeline(open_source(pulsar_file),
+                             dataclasses.replace(cfg, block_parts=3)).run()
+        # the block sizes differ, so the amount of tail data consumed
+        # (whole blocks only) differs: compare the common FULL subints;
+        # the final partial one is geometry-dependent
         n = min(len(r_mega.epochs), len(r_xla.epochs)) - 1
         assert n >= 3
         np.testing.assert_allclose(r_mega.integration_length[:n],
@@ -524,12 +525,10 @@ class TestSampleExactDivide:
             missing = round((res_n.epochs[0] - t0) * rate_out)
             np.testing.assert_allclose(y_total - n_total, missing, atol=1)
 
-    def test_blocks_per_step_boundary_in_first_batch(self, pulsar_file,
-                                                     monkeypatch):
-        """blocks_per_step=4 with a -L boundary inside batch 0 (VERDICT
-        r4 weak #7): batching decisions now come from exact boundaries,
-        so the batched run divides identically to blocks_per_step=1."""
-        monkeypatch.setenv("DSPSR_TPU_NO_MEGA", "1")
+    def test_blocks_per_step_boundary_in_first_batch(self, pulsar_file):
+        """blocks_per_step=4 with a -L boundary inside batch 0: batching
+        decisions come from exact boundaries, so the batched run divides
+        identically to blocks_per_step=1."""
         sub = 0.009
         base = dict(folding_period=PERIOD, dispersion_measure=DM,
                     nchan=4, subint_seconds=sub, min_block_samples=0,
@@ -552,10 +551,8 @@ class TestMultiPulsar:
         single-pulsar run (LoadToFold1.C:1155-1242 multi-fold)."""
         p2 = PERIOD * 1.37
         path = synth_pulsar_dada(str(tmp_path / "mp.dada"), nsec=0.3)
-        # multi-pulsar runs the general op chain; compare against single
-        # runs on the same engine (the megakernel rounds the overlap)
         base = dict(dispersion_measure=DM, nchan=4, block_parts=2,
-                    min_block_samples=0, nbin=32, use_megakernel=False)
+                    min_block_samples=0, nbin=32)
         cfg_multi = FoldConfig(folding_period=PERIOD,
                                additional_pulsars=(p2,), **base)
         res = load_to_fold(path, cfg_multi)
@@ -580,19 +577,13 @@ class TestDetectionStates:
     archive time; PP/QQ fold single polarizations."""
 
     def test_coherence_fold_converts_to_stokes(self, tmp_path):
-        from dspsr_tpu.observation import Signal
+        from dspsr_jax.observation import Signal
 
         path = synth_pulsar_dada(str(tmp_path / "coh.dada"), nsec=0.1)
         base = dict(folding_period=PERIOD, dispersion_measure=DM, nchan=4,
                     block_parts=2, min_block_samples=0, nbin=32)
-        # pin both runs to the XLA engine: this test asserts EXACT
-        # linearity of the coherence->Stokes conversion on one engine (the
-        # fused-path coherence fold has its own parity tests in
-        # test_megakernel.py and differs by the rounded overlap geometry)
-        rc = load_to_fold(path, FoldConfig(detection="coherence", **base,
-                                           use_megakernel=False))
-        rs = load_to_fold(path, FoldConfig(npol_out=4, **base,
-                                           use_megakernel=False))
+        rc = load_to_fold(path, FoldConfig(detection="coherence", **base))
+        rs = load_to_fold(path, FoldConfig(npol_out=4, **base))
         assert rc.obs.state == Signal.COHERENCE
         assert rc.profiles.shape == rs.profiles.shape
         # detection is linear per product, folding is linear: the converted
@@ -606,8 +597,7 @@ class TestDetectionStates:
     def test_pp_qq_single_pol_folds(self, tmp_path):
         path = synth_pulsar_dada(str(tmp_path / "pq.dada"), nsec=0.06)
         base = dict(folding_period=PERIOD, dispersion_measure=DM, nchan=4,
-                    block_parts=2, min_block_samples=0, nbin=32,
-                    use_megakernel=False)
+                    block_parts=2, min_block_samples=0, nbin=32)
         r2 = load_to_fold(path, FoldConfig(npol_out=2, **base))
         rp = load_to_fold(path, FoldConfig(detection="pp", **base))
         rq = load_to_fold(path, FoldConfig(detection="qq", **base))
@@ -619,8 +609,8 @@ class TestDetectionStates:
             / scale < 2e-6
 
     def test_coherence_archive_pol_type(self, tmp_path):
-        from dspsr_tpu.io.psrfits import save_psrfits_fold
-        from dspsr_tpu.io.fits import read_fits_headers
+        from dspsr_jax.io.psrfits import save_psrfits_fold
+        from dspsr_jax.io.fits import read_fits_headers
 
         path = synth_pulsar_dada(str(tmp_path / "ca.dada"), nsec=0.06)
         cfg = FoldConfig(folding_period=PERIOD, dispersion_measure=DM,
@@ -644,13 +634,13 @@ class TestPerSourceFoldGeometry:
         """With -b unset each pulsar gets its own choose_nbin from its own
         period (LoadToFold1.C:990-1092); every fold matches its
         single-pulsar run."""
-        from dspsr_tpu.io.sources import open_source
-        from dspsr_tpu.models.load_to_fold import FoldPipeline
+        from dspsr_jax.io.sources import open_source
+        from dspsr_jax.models.load_to_fold import FoldPipeline
 
         p2 = PERIOD / 7  # fast pulsar -> fewer phase bins than the primary
         path = synth_pulsar_dada(str(tmp_path / "nb.dada"), nsec=0.3)
         base = dict(dispersion_measure=DM, nchan=4, block_parts=2,
-                    min_block_samples=0, nbin=0, use_megakernel=False)
+                    min_block_samples=0, nbin=0)
         pipe = FoldPipeline(open_source(path),
                             FoldConfig(folding_period=PERIOD,
                                        additional_pulsars=(p2,), **base))
@@ -668,8 +658,8 @@ class TestPerSourceFoldGeometry:
 
     def test_per_source_dm_from_par(self, tmp_path):
         """A .par additional source records ITS dm in its FoldResult."""
-        from dspsr_tpu.io.sources import open_source
-        from dspsr_tpu.models.load_to_fold import FoldPipeline
+        from dspsr_jax.io.sources import open_source
+        from dspsr_jax.models.load_to_fold import FoldPipeline
 
         par = tmp_path / "x.par"
         par.write_text("PSRJ  J0000+0000\nF0  3.7\nDM  12.5\n"
@@ -677,7 +667,7 @@ class TestPerSourceFoldGeometry:
         path = synth_pulsar_dada(str(tmp_path / "pd.dada"), nsec=0.06)
         cfg = FoldConfig(folding_period=PERIOD, dispersion_measure=DM,
                          nchan=4, block_parts=2, min_block_samples=0,
-                         nbin=32, use_megakernel=False,
+                         nbin=32,
                          additional_pulsars=(str(par),))
         res = load_to_fold(path, cfg)
         assert res.dispersion_measure == DM
@@ -688,9 +678,9 @@ class TestCalFolding:
     def test_cal_mode_recovers_square_wave(self, tmp_path):
         """MODE=CAL + CALFREQ: fold at the cal square-wave frequency with no
         ephemeris (Fold.C:190-227 CAL branch)."""
-        from dspsr_tpu.io.dada import format_ascii_header, header_from_observation
-        from dspsr_tpu.timing.mjd import MJD
-        from dspsr_tpu.observation import Observation, Signal
+        from dspsr_jax.io.dada import format_ascii_header, header_from_observation
+        from dspsr_jax.timing.mjd import MJD
+        from dspsr_jax.observation import Observation, Signal
 
         rng = np.random.default_rng(8)
         rate = 1e6
@@ -758,11 +748,11 @@ class TestApodizationAndPassband:
     def test_archive_extensions_polyco_param_bandpass(self, tmp_path):
         """Archive carries POLYCO, PSRPARAM and BANDPASS extensions
         (Archiver.C / ArchiverExtensions.C roles)."""
-        from dspsr_tpu.io.psrfits import save_psrfits_fold
-        from dspsr_tpu.io.fits import read_fits_headers
-        from dspsr_tpu.observation import Observation, Signal
-        from dspsr_tpu.timing.mjd import MJD
-        from dspsr_tpu.io.sources import RawFileSource
+        from dspsr_jax.io.psrfits import save_psrfits_fold
+        from dspsr_jax.io.fits import read_fits_headers
+        from dspsr_jax.observation import Observation, Signal
+        from dspsr_jax.timing.mjd import MJD
+        from dspsr_jax.io.sources import RawFileSource
 
         rng = np.random.default_rng(2)
         obs = Observation(nchan=1, npol=2, ndim=1, nbit=8,
@@ -776,8 +766,7 @@ class TestApodizationAndPassband:
         cfg = FoldConfig(polyco_path="/root/reference/Benchmark/vela.polyco",
                          ephemeris_path="/root/reference/Benchmark/vela.par",
                          dispersion_measure=67.99, nchan=4, nbin=32,
-                         block_parts=2, min_block_samples=0, passband=True,
-                         use_megakernel=False)
+                         block_parts=2, min_block_samples=0, passband=True)
         res = FoldPipeline(RawFileSource(p, obs), cfg).run()
         ar = str(tmp_path / "vela.ar")
         save_psrfits_fold(ar, res)

@@ -4,12 +4,12 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from dspsr_tpu.ops.phase_locked import (
+from dspsr_jax.ops.phase_locked import (
     PLFPlan, window_plan, extract_windows, plf_fold_block, plf_fold_numpy,
     phase_locked_fold, suggest_nchan,
 )
-from dspsr_tpu.timing.mjd import MJD
-from dspsr_tpu.timing.polyco import FixedPeriodPredictor
+from dspsr_jax.timing.mjd import MJD
+from dspsr_jax.timing.polyco import FixedPeriodPredictor
 
 
 def test_window_plan_fixed_period():
@@ -63,8 +63,8 @@ def test_plf_fold_analytic(rng):
 def test_phase_locked_fold_end_to_end(tmp_path):
     """A tone at a known frequency shows up in the right output channel for
     every phase bin; hits are balanced across bins."""
-    from dspsr_tpu.observation import Observation, Signal
-    from dspsr_tpu.io.sources import RawFileSource
+    from dspsr_jax.observation import Observation, Signal
+    from dspsr_jax.io.sources import RawFileSource
 
     rate = 8000.0
     nsamp = 60000

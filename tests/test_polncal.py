@@ -3,12 +3,12 @@
 import numpy as np
 import pytest
 
-from dspsr_tpu.observation import Observation, Signal
-from dspsr_tpu.timing.mjd import MJD
-from dspsr_tpu.ops.polncal import (
+from dspsr_jax.observation import Observation, Signal
+from dspsr_jax.timing.mjd import MJD
+from dspsr_jax.ops.polncal import (
     PolnCalibration, load_jones_cal, select_from_database, jones_product,
 )
-from dspsr_tpu.ops.response import Response
+from dspsr_jax.ops.response import Response
 
 
 def _obs(nsamp=1 << 16, rate=1e6):
@@ -53,7 +53,7 @@ class TestLoaders:
             np.savez(tmp_path / name, freq=freqs,
                      jones=scale * _jones_solution(freqs))
         db = tmp_path / "database.txt"
-        db.write_text("dspsr_tpu/cal database\n"
+        db.write_text("dspsr_jax/cal database\n"
                       "a.npz 55000 55100\n"
                       "b.npz 55200 55400\n")
         assert select_from_database(str(db), 55299.0).endswith("b.npz")
@@ -85,9 +85,9 @@ class TestEndToEnd:
         """Corrupt clean dual-pol noise with a leaky Jones response; the
         calibrated fold's cross-coherence must be much smaller than the
         uncalibrated fold's."""
-        from dspsr_tpu.io.dada import format_ascii_header, header_from_observation
-        from dspsr_tpu.io.sources import DADAFile
-        from dspsr_tpu.models.load_to_fold import FoldConfig, FoldPipeline
+        from dspsr_jax.io.dada import format_ascii_header, header_from_observation
+        from dspsr_jax.io.sources import DADAFile
+        from dspsr_jax.models.load_to_fold import FoldConfig, FoldPipeline
 
         rng = np.random.default_rng(7)
         nsamp = 1 << 16

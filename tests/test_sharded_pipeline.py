@@ -12,12 +12,12 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from dspsr_tpu.observation import Observation, Signal
-from dspsr_tpu.timing.mjd import MJD
-from dspsr_tpu.io.sources import RawFileSource, DADAFile
-from dspsr_tpu.models.load_to_fold import FoldConfig, FoldPipeline
-from dspsr_tpu.parallel.sharded import make_mesh
-from dspsr_tpu.parallel.pipeline import ShardedFoldPipeline
+from dspsr_jax.observation import Observation, Signal
+from dspsr_jax.timing.mjd import MJD
+from dspsr_jax.io.sources import RawFileSource, DADAFile
+from dspsr_jax.models.load_to_fold import FoldConfig, FoldPipeline
+from dspsr_jax.parallel.sharded import make_mesh
+from dspsr_jax.parallel.pipeline import ShardedFoldPipeline
 
 RATE = 1e6
 
@@ -31,9 +31,12 @@ def _obs(nbit=8, npol=2, ndim=1):
         source="FAKE", telescope="PKS", instrument="RAW")
 
 
-def _write(tmp_path, name, nbytes, seed=5, rfi_stretch=None, twobit=False):
+def _write(tmp_path, name, nbytes, seed=5, rfi_stretch=None, twobit=False,
+           floats=False):
     rng = np.random.default_rng(seed)
-    if twobit:
+    if floats:
+        q = rng.normal(0, 1, nbytes // 4).astype("<f4").view(np.uint8)
+    elif twobit:
         # draw 2-bit codes with the JA98 Gaussian occupation (~0.677 low
         # fraction) so healthy blocks survive the excision window
         codes = rng.choice(4, size=nbytes * 4,
@@ -54,7 +57,7 @@ def _write(tmp_path, name, nbytes, seed=5, rfi_stretch=None, twobit=False):
 def _cfg(**kw):
     base = dict(folding_period=0.004, dispersion_measure=3.0, nchan=4,
                 nbin=32, block_parts=2, min_block_samples=0,
-                use_megakernel=False, digitizer_stats=True)
+                digitizer_stats=True)
     base.update(kw)
     return FoldConfig(**base)
 
@@ -62,23 +65,23 @@ def _cfg(**kw):
 def _parity(tmp_path, obs, cfg, n_time, n_chan, nsuper=2, name="d.raw",
             rfi_stretch=None, rtol=2e-5):
     """Run sharded vs single on identical data; compare results."""
-    twobit = obs.nbit == 2
+    twobit = obs.nbit == 2 and cfg.dynamic_twobit
+    floats = obs.nbit == 32
     mesh = make_mesh(n_time * n_chan, n_chan)
     # size the file to exactly nsuper superblocks (probe geometry first)
     probe_src = RawFileSource(
         _write(tmp_path, name, 1 << 22, rfi_stretch=rfi_stretch,
-               twobit=twobit), obs)
+               twobit=twobit, floats=floats), obs)
     sh = ShardedFoldPipeline(probe_src, cfg, mesh)
     total = nsuper * sh.superblock_stride + sh.inner.nsamp_overlap
     total_bytes = int(round(total * obs.nbytes_per_sample))
 
     path = _write(tmp_path, name, total_bytes, rfi_stretch=rfi_stretch,
-                  twobit=twobit)
+                  twobit=twobit, floats=floats)
     sh = ShardedFoldPipeline(RawFileSource(path, obs), cfg, mesh)
     res_n = sh.run()
 
-    single = FoldPipeline(RawFileSource(path, obs),
-                          dataclasses.replace(cfg, use_megakernel=False))
+    single = FoldPipeline(RawFileSource(path, obs), cfg)
     res_1 = single.run()
 
     assert res_n.profiles.shape == res_1.profiles.shape
@@ -142,39 +145,10 @@ def test_parity_sk_chan_sharded_with_rfi_burst(tmp_path):
 
 
 def test_parity_rfi_filter(tmp_path):
-    """rfi_filter under sharding runs the XLA chain's same-block zap per
-    shard (with use_megakernel=False) and matches the single XLA run."""
+    """rfi_filter under sharding runs the same-block zap per shard and
+    matches the single run."""
     res_n, _ = _parity(tmp_path, _obs(), _cfg(rfi_filter=True),
                        n_time=4, n_chan=1)
-
-
-def test_parity_rfi_filter_fused_two_pass(tmp_path):
-    """RFI under TIME sharding rides the FUSED path (r5): the state-free
-    two-pass hybrid (measure the bandpass, zap the same block) runs per
-    shard and matches the SINGLE-chip two-pass hybrid run exactly — both
-    engines, both same-block semantics."""
-    obs = _obs()
-    cfg = _cfg(rfi_filter=True, use_megakernel=True,
-               frequency_resolution=128, digitizer_stats=False)
-    mesh = make_mesh(4, 1)
-    probe = ShardedFoldPipeline(
-        RawFileSource(_write(tmp_path, "rf2.raw", 1 << 22), obs), cfg, mesh)
-    assert probe.megask and probe.inner.mega_mode == "hybrid"
-    assert probe.config.rfi_same_block
-    total = 2 * probe.superblock_stride + probe.inner.nsamp_overlap
-    path = _write(tmp_path, "rf2.raw",
-                  int(round(total * obs.nbytes_per_sample)))
-    sh = ShardedFoldPipeline(RawFileSource(path, obs), cfg, mesh)
-    res_n = sh.run()
-    single = FoldPipeline(
-        RawFileSource(path, obs),
-        dataclasses.replace(cfg, rfi_same_block=True))
-    assert single.mega_mode == "hybrid"
-    res_1 = single.run()
-    scale = np.abs(res_1.profiles).max() + 1e-30
-    np.testing.assert_allclose(res_n.profiles / scale,
-                               res_1.profiles / scale, atol=2e-5)
-    np.testing.assert_allclose(res_n.hits, res_1.hits, atol=1e-3)
 
 
 def test_parity_jones_calibration(tmp_path):
@@ -297,8 +271,8 @@ class TestShardedSearch:
         return _write(tmp_path, name, nbytes)
 
     def test_sharded_digifil_bytes_match_single(self, tmp_path):
-        from dspsr_tpu.models.load_to_fil import FilConfig, FilPipeline
-        from dspsr_tpu.parallel.search import ShardedFilPipeline
+        from dspsr_jax.models.load_to_fil import FilConfig, FilPipeline
+        from dspsr_jax.parallel.search import ShardedFilPipeline
 
         obs = _obs()
         cfg = FilConfig(nchan=4, nbits=8, dispersion_measure=2.0,
@@ -329,9 +303,9 @@ class TestShardedSearch:
         assert a[:n] == b[:n]
 
     def test_sharded_digifits(self, tmp_path):
-        from dspsr_tpu.models.load_to_fil import FilConfig
-        from dspsr_tpu.parallel.search import ShardedFilPipeline
-        from dspsr_tpu.io.cfitsio import available, CfitsioFile
+        from dspsr_jax.models.load_to_fil import FilConfig
+        from dspsr_jax.parallel.search import ShardedFilPipeline
+        from dspsr_jax.io.cfitsio import available, CfitsioFile
 
         obs = _obs()
         cfg = FilConfig(nchan=4, nbits=8, dispersion_measure=2.0,
@@ -348,87 +322,6 @@ class TestShardedSearch:
                 assert f.num_rows() > 0
 
 
-class TestShardedMegakernel:
-    def test_sharded_mega_matches_sharded_general(self, tmp_path):
-        """The flagship multi-chip config: each time shard runs the fused
-        Pallas megakernel; result equals the general-op-chain sharded run
-        AND the single-chip mega run."""
-        import dataclasses as dc
-        from dspsr_tpu.models.load_to_fold import FoldPipeline
-
-        obs = _obs()  # 8-bit real dual-pol => mega-eligible
-        cfg = FoldConfig(folding_period=0.004, dispersion_measure=3.0,
-                         nchan=4, nbin=32, block_parts=2,
-                         frequency_resolution=64,
-                         min_block_samples=0, use_megakernel=True,
-                         digitizer_stats=False)
-        mesh = make_mesh(4, 1)
-        probe = ShardedFoldPipeline(
-            RawFileSource(_write(tmp_path, "m.raw", 1 << 22), obs), cfg, mesh)
-        assert probe.mega, "megakernel should engage sharded"
-        total = 2 * probe.superblock_stride + probe.inner.nsamp_overlap
-        path = _write(tmp_path, "m.raw",
-                      int(round(total * obs.nbytes_per_sample)))
-
-        sh = ShardedFoldPipeline(RawFileSource(path, obs), cfg, mesh)
-        assert sh.mega
-        res_m = sh.run()
-
-        sh_g = ShardedFoldPipeline(
-            RawFileSource(path, obs),
-            dc.replace(cfg, use_megakernel=False), mesh)
-        assert not sh_g.mega
-        res_g = sh_g.run()
-
-        # geometries differ (mega rounds the overlap), so compare physics:
-        # total flux conservation and profile agreement where both fold
-        assert res_m.profiles.shape[1:] == res_g.profiles.shape[1:]
-
-        # exact check: single-chip mega with the same per-shard geometry
-        single = FoldPipeline(RawFileSource(path, obs), cfg)
-        assert single.mega_plan is not None
-        res_1 = single.run()
-        assert res_m.profiles.shape == res_1.profiles.shape
-        scale = np.abs(res_1.profiles).max()
-        assert np.abs(res_m.profiles - res_1.profiles).max() / scale < 2e-5
-        np.testing.assert_allclose(res_m.hits, res_1.hits, atol=1e-3)
-
-
-    def test_sharded_twobit_mega_matches_single_mega(self, tmp_path):
-        """2-bit JA98 in-kernel unpack + excision weights SHARDED: each time
-        shard runs the fused kernel on its stripe; equals the single-chip
-        fused run exactly (weights included)."""
-        from dspsr_tpu.models.load_to_fold import FoldPipeline
-
-        obs = _obs(nbit=2, ndim=2)
-        # n_fft 4096 -> R1 64, R2 64, row_len 64; npw=64 divides it
-        cfg = FoldConfig(folding_period=0.004, dispersion_measure=0.0,
-                         nchan=4, nbin=32, block_parts=2,
-                         frequency_resolution=1024, ndat_per_weight=64,
-                         min_block_samples=8192, use_megakernel=True,
-                         digitizer_stats=False)
-        mesh = make_mesh(4, 1)
-        probe = ShardedFoldPipeline(
-            RawFileSource(_write(tmp_path, "m2.raw", 1 << 20, twobit=True),
-                          obs), cfg, mesh)
-        assert probe.mega and probe.inner.mega_plan.npw == 64
-        total = 2 * probe.superblock_stride + probe.inner.nsamp_overlap
-        path = _write(tmp_path, "m2.raw",
-                      int(round(total * obs.nbytes_per_sample)),
-                      twobit=True, rfi_stretch=(30000, 34096))
-
-        sh = ShardedFoldPipeline(RawFileSource(path, obs), cfg, mesh)
-        res_m = sh.run()
-        single = FoldPipeline(RawFileSource(path, obs), cfg)
-        assert single.mega_plan is not None
-        res_1 = single.run()
-        scale = np.abs(res_1.profiles).max()
-        assert np.abs(res_m.profiles - res_1.profiles).max() / scale < 2e-5
-        np.testing.assert_allclose(res_m.hits, res_1.hits, atol=1e-3)
-        # excision visible in both
-        assert res_1.hits.min() < res_1.hits.max()
-
-
 def test_parity_cyclic_fold(tmp_path):
     """CyclicFold sharded over time (lag products per shard, matching the
     reference's per-thread pipelines)."""
@@ -436,102 +329,6 @@ def test_parity_cyclic_fold(tmp_path):
     cfg = _cfg(nchan=1, cyclic_nchan=8, npol_out=1,
                frequency_resolution=64, dispersion_measure=1.0)
     _parity(tmp_path, obs, cfg, n_time=4, n_chan=1, rtol=5e-5)
-
-
-class TestShardedHybrid:
-    def test_sharded_cyclic_hybrid_matches_single(self, tmp_path):
-        """Cyclic folding SHARDED now rides the hybrid fused step (voltage
-        front end + XLA lag/fold tail) on every time shard; equals the
-        single-chip hybrid run exactly."""
-        from dspsr_tpu.io.sources import RawFileSource
-        from dspsr_tpu.models.load_to_fold import FoldPipeline
-
-        obs = _obs()
-        cfg = _cfg(cyclic_nchan=4, cyclic_mover=1, nchan=4,
-                   frequency_resolution=1024, min_block_samples=8192,
-                   use_megakernel=True, digitizer_stats=False)
-        mesh = make_mesh(4, 1)
-        probe = ShardedFoldPipeline(
-            RawFileSource(_write(tmp_path, "cy.raw", 1 << 20), obs),
-            cfg, mesh)
-        assert probe.megask and probe.inner.mega_mode == "hybrid"
-        total = 2 * probe.superblock_stride + probe.inner.nsamp_overlap
-        path = _write(tmp_path, "cy.raw",
-                      int(round(total * obs.nbytes_per_sample)))
-
-        sh = ShardedFoldPipeline(RawFileSource(path, obs), cfg, mesh)
-        res_n = sh.run()
-        single = FoldPipeline(RawFileSource(path, obs), cfg)
-        assert single.mega_mode == "hybrid"
-        res_1 = single.run()
-        scale = np.abs(res_1.profiles).max()
-        assert np.abs(res_n.profiles - res_1.profiles).max() / scale < 2e-5
-        np.testing.assert_allclose(res_n.hits, res_1.hits, atol=1e-3)
-        # cyclic spectra reconstruct from both
-        assert res_n.cyclic_spectra().shape == res_1.cyclic_spectra().shape
-
-    def test_chan_sharded_megakernel_matches_single(self, tmp_path):
-        """Channel-sharded fused mode: a (2 time x 2 chan) mesh where each
-        shard runs the megastep on its OWN input-channel group (chirp rides
-        in as a chan-sharded argument) equals the single-chip fused run."""
-        from dspsr_tpu.io.sources import RawFileSource
-        from dspsr_tpu.models.load_to_fold import FoldPipeline
-
-        obs = _obs(ndim=2).replace(nchan=4, bandwidth=-4.0, rate=RATE / 4)
-        cfg = _cfg(nchan=64, frequency_resolution=256,
-                   min_block_samples=8192, use_megakernel=True,
-                   digitizer_stats=True)
-        mesh = make_mesh(4, 2)
-        probe = ShardedFoldPipeline(
-            RawFileSource(_write(tmp_path, "cm.raw", 1 << 20), obs),
-            cfg, mesh)
-        assert probe.mega_chan and probe.mega
-        assert probe.local_nchan == 2
-        total = 2 * probe.superblock_stride + probe.inner.nsamp_overlap
-        path = _write(tmp_path, "cm.raw",
-                      int(round(total * obs.nbytes_per_sample)))
-
-        sh = ShardedFoldPipeline(RawFileSource(path, obs), cfg, mesh)
-        res_n = sh.run()
-        single = FoldPipeline(RawFileSource(path, obs), cfg)
-        assert single.mega_mode == "full"
-        res_1 = single.run()
-        assert res_n.profiles.shape == res_1.profiles.shape
-        scale = np.abs(res_1.profiles).max()
-        assert np.abs(res_n.profiles - res_1.profiles).max() / scale < 2e-5
-        np.testing.assert_allclose(res_n.hits, res_1.hits, atol=1e-3)
-        np.testing.assert_array_equal(res_n.digitizer_counts,
-                                      res_1.digitizer_counts)
-
-    def test_chan_sharded_mega_twobit(self, tmp_path):
-        """2-bit JA98 unpack + excision under the channel-sharded fused
-        mode (per-group nlow counting stays local to each shard)."""
-        from dspsr_tpu.io.sources import RawFileSource
-        from dspsr_tpu.models.load_to_fold import FoldPipeline
-
-        obs = _obs(nbit=2, ndim=2).replace(nchan=2, bandwidth=-2.0,
-                                           rate=RATE / 2)
-        cfg = _cfg(nchan=8, frequency_resolution=1024, ndat_per_weight=64,
-                   min_block_samples=8192, use_megakernel=True,
-                   digitizer_stats=False, dispersion_measure=0.0,
-                   folding_period=0.004)
-        mesh = make_mesh(4, 2)
-        probe = ShardedFoldPipeline(
-            RawFileSource(_write(tmp_path, "cm2.raw", 1 << 20, twobit=True),
-                          obs), cfg, mesh)
-        assert probe.mega_chan and probe.inner.mega_plan.npw == 64
-        total = 2 * probe.superblock_stride + probe.inner.nsamp_overlap
-        path = _write(tmp_path, "cm2.raw",
-                      int(round(total * obs.nbytes_per_sample)),
-                      twobit=True, rfi_stretch=(30000, 34096))
-
-        sh = ShardedFoldPipeline(RawFileSource(path, obs), cfg, mesh)
-        res_n = sh.run()
-        single = FoldPipeline(RawFileSource(path, obs), cfg)
-        res_1 = single.run()
-        scale = np.abs(res_1.profiles).max()
-        assert np.abs(res_n.profiles - res_1.profiles).max() / scale < 2e-5
-        np.testing.assert_allclose(res_n.hits, res_1.hits, atol=1e-3)
 
 
 def _obs_mc(nchan=2, nbit=8):
@@ -544,66 +341,7 @@ def _obs_mc(nchan=2, nbit=8):
         instrument="RAW")
 
 
-def _hybrid_chan_parity(tmp_path, cfg, name, nsuper=2):
-    """Sharded (2 time x 2 chan) FUSED-hybrid run vs the single-chip
-    HYBRID run on identical data."""
-    obs = _obs_mc()
-    mesh = make_mesh(4, 2)
-    probe = ShardedFoldPipeline(
-        RawFileSource(_write(tmp_path, name, 1 << 22), obs), cfg, mesh)
-    assert probe.hybrid_chan, "channel-sharded hybrid mode must engage"
-    total = nsuper * probe.superblock_stride + probe.inner.nsamp_overlap
-    path = _write(tmp_path, name,
-                  int(round(total * obs.nbytes_per_sample)))
-    sh = ShardedFoldPipeline(RawFileSource(path, obs), cfg, mesh)
-    res_n = sh.run()
-    single = FoldPipeline(RawFileSource(path, obs), cfg)
-    assert single.mega_mode == "hybrid"
-    res_1 = single.run()
-    assert res_n.profiles.shape == res_1.profiles.shape
-    scale = np.abs(res_1.profiles).max() + 1e-30
-    np.testing.assert_allclose(res_n.profiles / scale,
-                               res_1.profiles / scale, atol=5e-5)
-    np.testing.assert_allclose(res_n.hits, res_1.hits, atol=1e-3)
-    return sh, res_n, res_1
-
-
-def test_chan_sharded_hybrid_sk_fused(tmp_path):
-    """In-stream SK under CHANNEL sharding rides the FUSED path (r5:
-    previously the XLA chain): each (time, chan) shard runs a
-    channel-LOCAL megafil front + the local XLA tail, and the SK fscr
-    round psums S1/S2 over the chan axis (global-Nd thresholds) —
-    matching the single-chip hybrid run."""
-    cfg = _cfg(use_megakernel=True, nchan=8, frequency_resolution=128,
-               sk_enable=True, sk_m=64, digitizer_stats=False)
-    _hybrid_chan_parity(tmp_path, cfg, "hcsk.raw")
-
-
-def test_chan_sharded_hybrid_cyclic_fused(tmp_path):
-    """Cyclic folding under CHANNEL sharding on the fused voltage
-    hybrid front (r5)."""
-    cfg = _cfg(use_megakernel=True, nchan=8, frequency_resolution=128,
-               cyclic_nchan=4, digitizer_stats=False)
-    _hybrid_chan_parity(tmp_path, cfg, "hccy.raw")
-
-
-def test_chan_sharded_hybrid_rfi_two_pass(tmp_path):
-    """RFI under CHANNEL sharding rides the fused two-pass hybrid (r5):
-    the zap is channel-local (the median runs within each input
-    channel's own band), so each (time, chan) shard computes exactly the
-    single-chip mask for its group — parity with the single-chip
-    two-pass run."""
-    cfg = _cfg(use_megakernel=True, nchan=8, frequency_resolution=128,
-               rfi_filter=True, rfi_same_block=True, rfi_median_width=9,
-               digitizer_stats=False)
-    _hybrid_chan_parity(tmp_path, cfg, "hcrfi.raw")
-
-
-def test_chan_sharded_hybrid_jones_fused(tmp_path):
-    """Jones matrix convolution under CHANNEL sharding rides the fused
-    path (r5): the four permuted Jones planes are the chan-sharded
-    traced pair, so each shard mixes its own channel group's calibration
-    — parity with the single-chip hybrid Jones run."""
+def _jones_file(tmp_path):
     rng = np.random.default_rng(2)
     freqs = np.linspace(1399.0, 1401.0, 64)
     j = np.empty((64, 2, 2), np.complex128)
@@ -611,51 +349,81 @@ def test_chan_sharded_hybrid_jones_fused(tmp_path):
         a = 0.1 * rng.standard_normal(2)
         j[i] = np.eye(2) + np.array([[0, a[0] + 1j * a[1]],
                                      [a[0] - 1j * a[1], 0]])
-    np.savez(tmp_path / "calc.npz", freq=freqs, jones=j)
-    cfg = _cfg(use_megakernel=True, nchan=2, npol_out=4,
-               frequency_resolution=256, dispersion_measure=1.0,
-               calibration_path=str(tmp_path / "calc.npz"),
-               digitizer_stats=False)
-    sh, res_n, res_1 = _hybrid_chan_parity(tmp_path, cfg, "hcj.raw")
-    assert sh.inner._jones_natural is not None
+    p = tmp_path / "cal.npz"
+    np.savez(p, freq=freqs, jones=j)
+    return str(p)
 
 
-def test_chan_sharded_hybrid_rfi_jones_fused(tmp_path):
-    """RFI x Jones under CHANNEL sharding (the last combination): the
-    Jones planes ride chan-sharded; the scalar slot carries ones on the
-    measuring pass and the locally-computed zap mask on the second pass
-    — parity with the single-chip two-pass Jones run."""
-    rng = np.random.default_rng(2)
-    freqs = np.linspace(1399.0, 1401.0, 64)
-    j = np.empty((64, 2, 2), np.complex128)
-    for i in range(64):
-        a = 0.1 * rng.standard_normal(2)
-        j[i] = np.eye(2) + np.array([[0, a[0] + 1j * a[1]],
-                                     [a[0] - 1j * a[1], 0]])
-    np.savez(tmp_path / "caljr.npz", freq=freqs, jones=j)
-    cfg = _cfg(use_megakernel=True, nchan=2, npol_out=4,
-               frequency_resolution=256, dispersion_measure=1.0,
-               calibration_path=str(tmp_path / "caljr.npz"),
-               rfi_filter=True, rfi_same_block=True, rfi_median_width=9,
-               digitizer_stats=False)
-    _hybrid_chan_parity(tmp_path, cfg, "hcjr.raw")
+CONV = dict(frequency_resolution=256, dispersion_measure=1.0)
+
+# sharded-vs-single parity over every feature and input format, on
+# (time x chan) meshes of 4 x 1 and 2 x 2 virtual devices
+SHARDED_CASES = {
+    "rfi_conv_time": (dict(mc=True), dict(CONV, nchan=2, rfi_filter=True,
+                                          rfi_median_width=9), 4, 1),
+    "rfi_conv_chan": (dict(mc=True), dict(CONV, nchan=2, rfi_filter=True,
+                                          rfi_median_width=9), 2, 2),
+    "rfi_fb_chan": (dict(mc=True), dict(nchan=8, frequency_resolution=128,
+                                        rfi_filter=True,
+                                        rfi_median_width=9), 2, 2),
+    "sk_chan": (dict(mc=True), dict(nchan=8, frequency_resolution=128,
+                                    sk_enable=True, sk_m=64), 2, 2),
+    "cyclic_chan": (dict(mc=True), dict(nchan=8, frequency_resolution=128,
+                                        cyclic_nchan=4), 2, 2),
+    "cyclic_real_time": (dict(), dict(nchan=4, frequency_resolution=256,
+                                      cyclic_nchan=4), 4, 1),
+    "jones_time": (dict(mc=True), dict(CONV, nchan=2, npol_out=4,
+                                       calibration_path="jones"), 4, 1),
+    "jones_chan": (dict(mc=True), dict(CONV, nchan=2, npol_out=4,
+                                       calibration_path="jones"), 2, 2),
+    "rfi_jones_chan": (dict(mc=True), dict(CONV, nchan=2, npol_out=4,
+                                           calibration_path="jones",
+                                           rfi_filter=True,
+                                           rfi_median_width=9), 2, 2),
+    "coherence_chan": (dict(mc=True), dict(nchan=8, frequency_resolution=128,
+                                           detection="coherence"), 2, 2),
+    "ppqq_real_chan": (dict(), dict(npol_out=2), 2, 2),
+    "nthpower_time": (dict(), dict(npol_out=3), 4, 1),
+    "hanning_time": (dict(), dict(fft_window="hanning"), 4, 1),
+    "fixed_twobit_time": (dict(nbit=2, ndim=2), dict(dynamic_twobit=False),
+                          4, 1),
+    "twos_4bit_time": (dict(nbit=4, ndim=2), dict(twos_complement=True),
+                       4, 1),
+    "float32_time": (dict(nbit=32, ndim=2), dict(), 4, 1),
+    "caspsr_time": (dict(instrument="CASPSR"), dict(), 4, 1),
+    "multichan_twobit_chan": (dict(mc=True, nbit=2),
+                              dict(nchan=8, frequency_resolution=128,
+                                   ndat_per_weight=64), 2, 2),
+}
 
 
-def test_chan_sharded_hybrid_sk_subints(tmp_path):
-    """Chan-sharded hybrid + sample-exact -L boundaries mid-shard."""
+@pytest.mark.parametrize("case", sorted(SHARDED_CASES))
+def test_sharded_matches_single(tmp_path, case):
+    obskw, cfgkw, n_time, n_chan = SHARDED_CASES[case]
+    obskw = dict(obskw)
+    if obskw.pop("mc", False):
+        obs = _obs_mc(**obskw)
+    else:
+        inst = obskw.pop("instrument", "RAW")
+        obs = _obs(**obskw).replace(instrument=inst)
+    cfgkw = dict(cfgkw, digitizer_stats=obs.nbit <= 8)
+    if cfgkw.get("calibration_path") == "jones":
+        cfgkw["calibration_path"] = _jones_file(tmp_path)
+    _parity(tmp_path, obs, _cfg(**cfgkw), n_time=n_time, n_chan=n_chan,
+            rtol=5e-5)
+
+
+def test_chan_sharded_sk_subints(tmp_path):
+    """Chan-sharded SK + sample-exact -L boundaries mid-shard."""
     obs = _obs_mc()
     mesh = make_mesh(4, 2)
-    base = _cfg(use_megakernel=True, nchan=8, frequency_resolution=128,
-                sk_enable=True, sk_m=64, digitizer_stats=False)
+    base = _cfg(nchan=8, frequency_resolution=128, sk_enable=True, sk_m=64,
+                digitizer_stats=False)
     probe = ShardedFoldPipeline(
         RawFileSource(_write(tmp_path, "hcsub.raw", 1 << 22), obs),
         base, mesh)
     sub = probe.inner.stride_in_samples / RATE * 1.3
     cfg = dataclasses.replace(base, subint_seconds=sub)
-    sh, res_n, res_1 = _hybrid_chan_parity(tmp_path, cfg, "hcsub.raw",
-                                           nsuper=3)
+    res_n, res_1 = _parity(tmp_path, obs, cfg, n_time=2, n_chan=2,
+                           nsuper=3, name="hcsub.raw", rtol=5e-5)
     assert res_n.profiles.shape[0] >= 3
-    np.testing.assert_allclose(res_n.integration_length,
-                               res_1.integration_length, rtol=1e-12)
-    for a, b in zip(res_n.epochs, res_1.epochs):
-        assert abs(a - b) < 1e-12

@@ -4,10 +4,10 @@ Signal/Pulsar/Archiver.C)."""
 
 import numpy as np
 
-from dspsr_tpu.io.archive import save_archive, load_archive
-from dspsr_tpu.io.psrfits_in import load_psrfits_fold, _parse_headers_with_offsets
-from dspsr_tpu.models.load_to_fold import FoldConfig, FoldPipeline
-from dspsr_tpu.io.sources import open_source
+from dspsr_jax.io.archive import save_archive, load_archive
+from dspsr_jax.io.psrfits_in import load_psrfits_fold, _parse_headers_with_offsets
+from dspsr_jax.models.load_to_fold import FoldConfig, FoldPipeline
+from dspsr_jax.io.sources import open_source
 
 from test_pipeline import synth_pulsar_dada, PERIOD, DM
 
@@ -109,7 +109,7 @@ def test_digitizer_counts_recorded(tmp_path):
 def test_repeat_soak_writes_sequence_archives(tmp_path, monkeypatch):
     """--repeat N reprocesses the input N times (reference --repeat,
     SingleThread.C:456-487)."""
-    from dspsr_tpu.apps.dspsr_app import main
+    from dspsr_jax.apps.dspsr_app import main
 
     p = synth_pulsar_dada(str(tmp_path / "r.dada"), nsec=0.05)
     out = str(tmp_path / "r.npz")

@@ -4,9 +4,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from dspsr_tpu.utils.stats import PearsonIV, sk_limits
-from dspsr_tpu.ops.spectral_kurtosis import SKPlan, sk_estimate, sk_mask, expand_mask
-from dspsr_tpu.models.load_to_fold import FoldConfig, load_to_fold
+from dspsr_jax.utils.stats import PearsonIV, sk_limits
+from dspsr_jax.ops.spectral_kurtosis import SKPlan, sk_estimate, sk_mask, expand_mask
+from dspsr_jax.models.load_to_fold import FoldConfig, load_to_fold
 from test_pipeline import synth_pulsar_dada, PERIOD, DM, PULSE_PHASE, RATE
 
 
@@ -190,7 +190,7 @@ class TestPipelineIntegration:
 
 class TestRFIFilter:
     def test_median_filter(self):
-        from dspsr_tpu.ops.rfifilter import median_filter_freq
+        from dspsr_jax.ops.rfifilter import median_filter_freq
         x = jnp.asarray(np.array([1., 1, 1, 50, 1, 1, 1, 1], np.float32))
         m = np.asarray(median_filter_freq(x, 3))
         np.testing.assert_array_equal(m, 1.0)
@@ -201,7 +201,7 @@ class TestRFIFilter:
         synth_pulsar_dada(path, nsec=0.1, seed=6, amp=0.0)
         # add a persistent strong tone at +1/8 band to the whole file
         import os
-        from dspsr_tpu.io.sources import open_source
+        from dspsr_jax.io.sources import open_source
         src = open_source(path)
         n = src.total_samples
         t = np.arange(n)

@@ -10,9 +10,9 @@ import math
 import numpy as np
 import pytest
 
-from dspsr_tpu.timing.mjd import MJD
-from dspsr_tpu.timing.polyco import Polyco
-from dspsr_tpu.timing.t2pred import (
+from dspsr_jax.timing.mjd import MJD
+from dspsr_jax.timing.polyco import Polyco
+from dspsr_jax.timing.t2pred import (
     T2Predictor, fit_cheby_model, generate_from_predictor, load_predictor,
 )
 

@@ -11,9 +11,9 @@ import math
 import numpy as np
 import pytest
 
-from dspsr_tpu.timing.mjd import MJD
-from dspsr_tpu.timing.polyco import FixedPeriodPredictor
-from dspsr_tpu.timing.timedivide import TimeDivide, iphase
+from dspsr_jax.timing.mjd import MJD
+from dspsr_jax.timing.polyco import FixedPeriodPredictor
+from dspsr_jax.timing.timedivide import TimeDivide, iphase
 
 RATE = 1e6  # 1 Msample/s output domain
 

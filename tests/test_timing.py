@@ -10,9 +10,9 @@ import math
 import numpy as np
 import pytest
 
-from dspsr_tpu.timing.mjd import MJD
-from dspsr_tpu.timing.polyco import Polyco, FixedPeriodPredictor
-from dspsr_tpu.timing.par import Ephemeris
+from dspsr_jax.timing.mjd import MJD
+from dspsr_jax.timing.polyco import Polyco, FixedPeriodPredictor
+from dspsr_jax.timing.par import Ephemeris
 
 
 class TestMJD:
@@ -143,7 +143,7 @@ class TestBarycentre:
     TEMPO applies before the reference folds (Fold.C:229-267)."""
 
     def test_earth_orbit_geometry(self):
-        from dspsr_tpu.timing.barycentre import earth_position_au
+        from dspsr_jax.timing.barycentre import earth_position_au
 
         mjds = 55000.0 + np.arange(0, 366, 2.0)
         r = np.array([earth_position_au(m) for m in mjds])
@@ -154,8 +154,8 @@ class TestBarycentre:
                               - earth_position_au(55000.0 + 365.2564)) < 0.01
 
     def test_equinox_sign_convention(self):
-        from dspsr_tpu.timing.barycentre import SSBDelay
-        from dspsr_tpu.timing.mjd import MJD
+        from dspsr_jax.timing.barycentre import SSBDelay
+        from dspsr_jax.timing.mjd import MJD
 
         # 2010 March equinox ~ MJD 55275.7: Sun at ecliptic longitude 0,
         # Earth at (-R, 0, 0); a pulsar at RA=0h, Dec=0 sits on +x, so the
@@ -165,8 +165,8 @@ class TestBarycentre:
         assert -501.0 < d < -485.0, d
 
     def test_ecliptic_pole_small_delay(self):
-        from dspsr_tpu.timing.barycentre import SSBDelay
-        from dspsr_tpu.timing.mjd import MJD
+        from dspsr_jax.timing.barycentre import SSBDelay
+        from dspsr_jax.timing.mjd import MJD
         import math
 
         # north ecliptic pole: RA 18h, Dec +66.561 deg — the Earth's orbit
@@ -176,8 +176,8 @@ class TestBarycentre:
         assert max(ds) < 15.0, max(ds)
 
     def test_ecliptic_plane_full_amplitude(self):
-        from dspsr_tpu.timing.barycentre import SSBDelay
-        from dspsr_tpu.timing.mjd import MJD
+        from dspsr_jax.timing.barycentre import SSBDelay
+        from dspsr_jax.timing.mjd import MJD
 
         s = SSBDelay(0.0, 0.0)  # on the ecliptic (equinox point)
         ds = [s.delay(MJD(55000 + k, 0.0)) for k in range(0, 366, 2)]
@@ -189,9 +189,9 @@ class TestBarycentre:
         frequency (vela.polyco, generated for Parkes) ~20x better than the
         topocentric model — an external cross-check against real TEMPO
         output."""
-        from dspsr_tpu.timing.par import Ephemeris
-        from dspsr_tpu.timing.polyco import Polyco, SpinPredictor
-        from dspsr_tpu.timing.mjd import MJD
+        from dspsr_jax.timing.par import Ephemeris
+        from dspsr_jax.timing.polyco import Polyco, SpinPredictor
+        from dspsr_jax.timing.mjd import MJD
 
         eph = Ephemeris.load("/root/reference/Benchmark/vela.par")
         pc = Polyco.load("/root/reference/Benchmark/vela.polyco")
@@ -211,9 +211,9 @@ class TestBarycentre:
     def test_site_velocity_term_improves_vs_tempo(self):
         """Adding the Parkes diurnal (site-velocity) term cuts the residual
         vs TEMPO's Parkes-specific polyco by another order of magnitude."""
-        from dspsr_tpu.timing.par import Ephemeris
-        from dspsr_tpu.timing.polyco import Polyco, SpinPredictor
-        from dspsr_tpu.timing.mjd import MJD
+        from dspsr_jax.timing.par import Ephemeris
+        from dspsr_jax.timing.polyco import Polyco, SpinPredictor
+        from dspsr_jax.timing.mjd import MJD
 
         eph = Ephemeris.load("/root/reference/Benchmark/vela.par")
         pc = Polyco.load("/root/reference/Benchmark/vela.polyco")
@@ -229,7 +229,7 @@ class TestBarycentre:
         assert max(errs_s) < 2e-6  # ~1e-7 fractional on Vela
 
     def test_observatory_position_geometry(self):
-        from dspsr_tpu.timing.barycentre import (observatory_position_au,
+        from dspsr_jax.timing.barycentre import (observatory_position_au,
                                                  OBSERVATORIES,
                                                  _EARTH_R_AU)
         import numpy as np

@@ -6,9 +6,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from dspsr_tpu.unpack.bittable import BitTable, CodeType, optimal_spacing
-from dspsr_tpu.unpack.twobit import TwoBitCorrection, optimal_flow, _erfinv
-from dspsr_tpu.unpack.unpackers import (
+from dspsr_jax.unpack.bittable import BitTable, CodeType, optimal_spacing
+from dspsr_jax.unpack.twobit import TwoBitCorrection, optimal_flow, _erfinv
+from dspsr_jax.unpack.unpackers import (
     bytes_to_codes,
     unpack_fixed,
     unpack_twobit_dynamic,
@@ -16,7 +16,7 @@ from dspsr_tpu.unpack.unpackers import (
     digitizer_histogram,
     UnpackPlan,
 )
-from dspsr_tpu.observation import Observation, Signal
+from dspsr_jax.observation import Observation, Signal
 
 
 class TestBitTable:
@@ -81,7 +81,7 @@ class TestUnpackFixed:
         Uniform level map is affine in the code, so ordering can be checked
         by inverting the affine map.
         """
-        from dspsr_tpu.unpack.bittable import BitTable
+        from dspsr_jax.unpack.bittable import BitTable
 
         nchan, npol, ndim, ndat = 2, 2, 2, 16
         vals = rng.integers(0, 256, ndat * nchan * npol * ndim).astype(np.uint8)
@@ -96,8 +96,8 @@ class TestUnpackFixed:
 
     def test_matches_bittable(self, rng):
         """Arithmetic unpack == BitTable lookup for all codes, both types."""
-        from dspsr_tpu.unpack.bittable import BitTable, CodeType
-        from dspsr_tpu.unpack.unpackers import _uniform_levels
+        from dspsr_jax.unpack.bittable import BitTable, CodeType
+        from dspsr_jax.unpack.unpackers import _uniform_levels
 
         for nbit in (1, 2, 4, 8):
             codes = np.arange(1 << nbit, dtype=np.int32)
